@@ -1,0 +1,60 @@
+"""Kernel 2, stream_concat: per-block streams -> one stream per image.
+
+Replaces the merge levels and finisher of sjpeg_tpu/ops/pallas_tree_concat.py
+(source and design notes in csrc/stream_concat.cu).  `stream_concat`
+launches the CUDA kernel for CUDA tensors and runs `stream_concat_plain`
+(ops/pack.concat_block_streams_batched) for CPU tensors.  Totals are exact
+and nothing is truncated except words past the bucket, so an image whose
+total exceeds bucket * 32 bits is known to have lost words.
+"""
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from . import pack
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def stream_concat_plain(words, bits, n_images: int, bucket: int):
+    """The plain PyTorch version; same arguments and results as
+    `stream_concat`."""
+    out, totals = pack.concat_block_streams_batched(
+        pack.to_u32(words), bits, n_images, bucket)
+    return pack.to_bits32(out), totals
+
+
+def stream_concat(words, bits, n_images: int, bucket: int):
+    """words: [N, 64] int32 (uint32 bit patterns, left-aligned per block,
+    zero past each block's count); bits: [N] int32, N = n_images *
+    blocks per image, image-major.  Returns ([n_images, bucket] int32
+    words, [n_images] int32 total bits)."""
+    if words.device.type == "cpu":
+        return stream_concat_plain(words, bits, n_images, bucket)
+    n = words.shape[0]
+    if (words.dtype != torch.int32 or bits.dtype != torch.int32
+            or words.shape != (n, pack.WORDS_PER_BLOCK)
+            or bits.shape != (n,) or n % n_images
+            or bits.device != words.device
+            or not (words.is_contiguous() and bits.is_contiguous())):
+        raise ValueError("stream_concat takes contiguous int32 [N, 64] "
+                         "words and [N] bits on one device, N a multiple "
+                         "of n_images")
+    lens = bits.to(torch.int64).reshape(n_images, -1)
+    offs = (torch.cumsum(lens, dim=1) - lens).reshape(-1)
+    totals = lens.sum(dim=1).to(torch.int32)
+    out = torch.zeros((n_images, bucket), dtype=torch.int32,
+                      device=words.device)
+    fn = kernels.function("stream_concat", "sjpeg_stream_concat", _ARGTYPES)
+    with torch.cuda.device(words.device):
+        rc = fn(words.data_ptr(), bits.data_ptr(), offs.data_ptr(),
+                out.data_ptr(), n, n // n_images, bucket,
+                torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "stream_concat")
+    stream_concat.launches += 1
+    return out, totals
+
+
+stream_concat.launches = 0

@@ -1,0 +1,233 @@
+"""The port's two kernels: their plain PyTorch versions against the JAX
+package (XLA chain and the Pallas kernel in interpret mode), and the
+shared CUDA arithmetic compiled for the host.  Comparisons are exact.
+The CUDA launches themselves are tested in test_torch_cuda.py."""
+
+import ast
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sjpeg_tpu import constants as JC
+from sjpeg_tpu import engine as jengine
+from sjpeg_tpu import spec as jspec
+from sjpeg_tpu.huffman import k3_default_tables as j_k3
+from sjpeg_tpu.ops import colorspace as jcs
+from sjpeg_tpu.ops import fdct as jfdct
+from sjpeg_tpu.ops import pack as jpack
+from sjpeg_tpu.ops import vlc as jvlc
+from sjpeg_tpu.params import quant_matrices_for_quality as j_qmq
+
+from sjpeg_tpu_torch import constants as C
+from sjpeg_tpu_torch import engine, state
+from sjpeg_tpu_torch.ops import colorspace, sample_pack
+from sjpeg_tpu_torch.params import EncoderParam
+
+REPO = Path(__file__).resolve().parents[1]
+NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
+
+
+def _rgb(rng, b, h, w):
+    rgb = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+    rgb[0, :16, :16] = [0, 0, 255]       # U = +128
+    rgb[-1, 16:, 16:] = [255, 0, 0]      # V = +128
+    return rgb
+
+
+def _tables(q):
+    """(JAX qms, numpy iq, ib, dc LUTs, AC LUTs) for quality q."""
+    qms = [jspec.finalize_quant_matrix(j_qmq(q)[i], np.ones(64, np.uint8),
+                                       JC.DEFAULT_BIAS) for i in range(2)]
+    iq, ib = jengine._quant_device_arrays(qms)
+    dcl, acl = jengine._device_luts(j_k3())
+    return qms, [np.asarray(a) for a in (iq, ib, dcl, acl)]
+
+
+def _port_inputs(rgb, mode, tables, device="cpu"):
+    """The port's interleaved samples, DC codes and groups for `rgb`."""
+    b, h, w = rgb.shape[:3]
+    t = state.tables_from_numpy(*tables, device)
+    blocks = colorspace.rgb_to_blocks(torch.from_numpy(rgb).to(device),
+                                      mode, w, h)
+    return engine._interleave_samples(blocks, t[0], t[1], NB[mode], b), t
+
+
+@pytest.mark.parametrize("mode", [C.YUV_420, C.YUV_444, C.YUV_400])
+def test_sample_pack_plain_matches_jax_chain(mode):
+    """Port interleave + sample_pack_plain == the JAX CPU chain
+    fdct -> _interleave_quantized -> block_entries_grouped ->
+    pack_block_entries, over a two-image batch (DC chain reset)."""
+    b, h, w = 2, 40, 24
+    rgb = _rgb(np.random.RandomState(11), b, h, w)
+    _, arrays = _tables(75)
+    iq, ib, dcl, acl = (jnp.asarray(a) for a in arrays)
+    jblocks = jcs.rgb_to_blocks(jnp.asarray(rgb), mode, w, h)
+    rl, jdc, jgroup = jengine._interleave_quantized(
+        [jfdct.fdct_blocks(x) for x in jblocks], iq, ib, NB[mode], b)
+    want_w, want_b = jpack.pack_block_entries(
+        *jvlc.block_entries_grouped(rl, jdc, dcl, acl, jgroup))
+
+    (sinter, dc, group), t = _port_inputs(rgb, mode, arrays)
+    np.testing.assert_array_equal(dc.numpy(), np.asarray(jdc))
+    np.testing.assert_array_equal(group.numpy(), np.asarray(jgroup))
+    words, bits = sample_pack.sample_pack(sinter, dc, group, *t)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(want_b))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32),
+                                  np.asarray(want_w))
+
+
+def test_sample_pack_plain_matches_pallas_interpret():
+    """sample_pack_plain == the TPU kernel sample_vlc_pack_pallas run in
+    interpret mode on the same batch, with saturated chroma (+128, which
+    the TPU's int8 transport wraps and the kernel decodes)."""
+    from jax.experimental import pallas as pl
+    from sjpeg_tpu.ops import pallas_quant_pack as pqp
+
+    b, h, w = 2, 48, 64
+    rgb = _rgb(np.random.RandomState(12), b, h, w)
+    _, arrays = _tables(75)
+    iq, ib, dcl, acl = (jnp.asarray(a) for a in arrays)
+    b8 = jcs.rgb_to_blocks(jnp.asarray(rgb), C.YUV_420, w, h,
+                           out_dtype=jnp.int8)
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    pl.pallas_call = patched
+    try:
+        s8, jdc, jgroup = jengine._interleave_samples(
+            b8, iq, ib, NB[C.YUV_420], n_images=b, chroma_wrap=True)
+        want_w, want_b = pqp.sample_vlc_pack_pallas.__wrapped__(
+            s8, jdc, jgroup, iq, ib, dcl, acl, tile=16, chroma_wrap=True)
+    finally:
+        pl.pallas_call = orig
+
+    (sinter, dc, group), t = _port_inputs(rgb, C.YUV_420, arrays)
+    assert (sinter == 128).any()
+    np.testing.assert_array_equal(dc.numpy(), np.asarray(jdc))
+    words, bits = sample_pack.sample_pack_plain(sinter, dc, group, *t)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(want_b))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32),
+                                  np.asarray(want_w))
+
+
+_HOST_SHIM = """
+#define __host__
+#define __device__
+#include "block_core.cuh"
+extern "C" void encode_blocks(const int32_t* samples, const int32_t* dc,
+                              const int32_t* group, const uint32_t* iq,
+                              const uint32_t* ib, const uint32_t* dcl,
+                              const uint32_t* acl, uint32_t* words,
+                              int32_t* bits, int n) {
+  for (int b = 0; b < n; ++b) {
+    uint32_t x[64];
+    for (int k = 0; k < 64; ++k) x[k] = (uint32_t)samples[64 * b + k];
+    bits[b] = sjpeg::encode_block(x, (uint32_t)dc[b], group[b], iq, ib,
+                                  dcl, acl, words + 64 * b);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_core(tmp_path_factory):
+    """csrc/block_core.cuh built by the host C++ compiler."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("g++ is not installed")
+    d = tmp_path_factory.mktemp("core")
+    (d / "core.cpp").write_text(_HOST_SHIM)
+    lib = d / "libcore.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    f"-I{REPO / 'sjpeg_tpu_torch' / 'csrc'}", "-o", str(lib),
+                    str(d / "core.cpp")], check=True)
+    fn = ctypes.CDLL(str(lib)).encode_blocks
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
+    fn.restype = None
+    return fn
+
+
+@pytest.mark.parametrize("q,lo,hi", [(75, -128, 129), (100, -128, 129),
+                                     (100, -32768, 32768)])
+def test_block_core_host_build_matches_plain(host_core, q, lo, hi):
+    """The CUDA kernels' per-block arithmetic == sample_pack_plain on 2k
+    random blocks: 8-bit samples at q75 and q100, and the full int16
+    range, where the fDCT's int32 products wrap."""
+    n = 2048
+    rng = np.random.RandomState(13)
+    samples = rng.randint(lo, hi, (n, 64)).astype(np.int32)
+    samples[:n // 4] //= 16                  # smoother blocks: zero runs
+    samples[n // 4:n // 2, 1:] = samples[n // 4:n // 2, :1]     # flat
+    group = rng.randint(0, 2, n).astype(np.int32)
+    dcq = rng.randint(-2047, 2048, n)
+    dc = engine.vlc.dc_diff_codes(torch.from_numpy(dcq), 4).numpy()
+    _, arrays = _tables(q)
+    t = state.tables_from_numpy(*arrays, "cpu")
+    want_w, want_b = sample_pack.sample_pack_plain(
+        torch.from_numpy(samples), torch.from_numpy(dc),
+        torch.from_numpy(group), *t)
+
+    words = np.zeros((n, 64), np.uint32)
+    bits = np.zeros(n, np.int32)
+    host = [np.ascontiguousarray(x.numpy()) for x in t]
+    host_core(samples.ctypes.data, dc.ctypes.data, group.ctypes.data,
+              *(a.ctypes.data for a in host), words.ctypes.data,
+              bits.ctypes.data, n)
+    np.testing.assert_array_equal(bits, want_b.numpy())
+    np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_sjpeg_tpu():
+    files = sorted((REPO / "sjpeg_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = [(f.name, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "sjpeg_tpu")]
+    assert len(files) > 10 and not bad, bad
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),                                             # method 4, AUTO
+    dict(huffman_compress=False, yuv_mode=C.YUV_AUTO),
+    dict(huffman_compress=False, adaptive_quantization=False,
+         yuv_mode=C.YUV_SHARP),
+    dict(huffman_compress=False, adaptive_quantization=False,
+         yuv_mode=C.YUV_420, passes=3),
+])
+def test_unported_configurations_raise(kw):
+    rgb = np.zeros((1, 16, 16, 3), np.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        engine.encode_batch(rgb, EncoderParam(**kw), device="cpu")
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    param = EncoderParam(huffman_compress=False, adaptive_quantization=False,
+                         yuv_mode=C.YUV_420)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.encode_batch(np.zeros((1, 16, 16, 3), np.uint8), param)
+
+
+def test_empty_image_is_rejected():
+    param = EncoderParam(huffman_compress=False, adaptive_quantization=False,
+                         yuv_mode=C.YUV_420)
+    with pytest.raises(ValueError, match="image size"):
+        engine.encode_batch(np.zeros((1, 0, 16, 3), np.uint8), param,
+                            device="cpu")
