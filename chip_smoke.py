@@ -2,19 +2,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the method-0 batched encode
-(sjpeg_tpu_torch.engine.encode_batch) at 16 x 1024 x 1024 RGB, 4:2:0, q75,
-through the two CUDA kernels, and holds every kernel and every output
-against the plain PyTorch versions on the same card.  Phases, one JSON line
-each: probe, build, parity (each kernel vs its plain version at full size),
-main_path (launch counts, bytes vs the plain-forced path), cases (4:4:4,
-4:0:0, 1000 x 750, a bucket overflow, GPU vs CPU path), timing (CUDA events
-and host clock), breakdown (host clock per stage).  Then the `kernels`
-line, the card's name and power limit, and last
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
-without CUDA it exits 1 before printing any result.
+Drives the port's two paths through sjpeg_tpu_torch.engine.encode_batch at
+16 x 1024 x 1024 RGB, 4:2:0, q75, and holds every kernel and every output
+against the plain PyTorch versions on the same card:
+
+- method 0 (K.3 tables), through sample_pack and stream_concat.  Phases:
+  probe, build, parity (each kernel vs its plain version at full size),
+  main_path (launch counts, bytes vs the plain-forced path), cases (4:4:4,
+  4:0:0, 1000 x 750, a bucket overflow, GPU vs CPU path), timing (CUDA
+  events and host clock), breakdown (host clock per stage);
+- method 4 (adaptive quantization + per-image optimal Huffman tables),
+  through merge_codesizes, vlc_pack and stream_concat.  Phases: m4_parity,
+  m4_path, m4_cases (methods 1 and 3, shared statistics, 4:4:4, 4:0:0,
+  1000 x 750, NV12, overflow re-packs, GPU vs CPU path), m4_timing,
+  m4_breakdown.
+
+One JSON line each.  Then the `kernels` line, the card's name and power
+limit, and last {"ok": true, "device": {...}}.  Any failure raises and
+exits non-zero; without CUDA it exits 1 before printing any result.
 """
 
+import contextlib
 import json
 import shutil
 import statistics
@@ -71,15 +79,46 @@ def method0(mode: int, quality: float = QUALITY):
                         huffman_compress=False, adaptive_quantization=False)
 
 
+def method4(mode: int, quality: float = QUALITY, method: int = 4):
+    """Method 4 (the default toggles), or 1 (no adaptive quantization) or
+    3 (no Huffman optimization)."""
+    from sjpeg_tpu_torch.params import EncoderParam
+    return EncoderParam(quality=quality, yuv_mode=mode,
+                        adaptive_quantization=method != 1,
+                        huffman_compress=method != 3)
+
+
+@contextlib.contextmanager
 def plain_forced():
     """Patch the engine's kernel calls with the plain versions (this
     script only: the package itself never falls back)."""
-    from sjpeg_tpu_torch.ops import sample_pack, stream_concat
-    return mock.patch.multiple(
-        "sjpeg_tpu_torch.engine",
-        sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
-        stream_concat=mock.Mock(
-            stream_concat=stream_concat.stream_concat_plain))
+    from sjpeg_tpu_torch.ops import (merge_codesizes, sample_pack,
+                                     stream_concat, vlc_pack)
+    with mock.patch.multiple(
+            "sjpeg_tpu_torch.engine",
+            sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
+            stream_concat=mock.Mock(
+                stream_concat=stream_concat.stream_concat_plain),
+            vlc_pack=mock.Mock(vlc_pack=vlc_pack.vlc_pack_plain)), \
+            mock.patch("sjpeg_tpu_torch.ops.huffman_device.merge_codesizes",
+                       merge_codesizes.merge_codesizes_plain):
+        yield
+
+
+def max_err(pairs) -> int:
+    """Largest absolute difference over (kernel, plain) tensor pairs."""
+    return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain, nbytes,
+               ops, **extra) -> dict:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "operations": ops, **extra}
 
 
 def event_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -117,8 +156,9 @@ def main() -> int:
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, pipeline, state
     from sjpeg_tpu_torch.huffman import k3_default_tables
-    from sjpeg_tpu_torch.ops import (colorspace, fdct, quantize,
-                                     sample_pack, stream_concat)
+    from sjpeg_tpu_torch.ops import (colorspace, fdct, merge_codesizes,
+                                     quantize, sample_pack, stream_concat,
+                                     vlc_pack)
 
     dev = torch.device(DEVICE)
     card = gpu_name_and_limit()
@@ -185,17 +225,21 @@ def main() -> int:
     need(int(totals.max()) <= bucket * 32, "config 1 fits its bucket")
 
     # ---- 4. main path ---------------------------------------------------
-    sample_pack.sample_pack.launches = 0
-    stream_concat.stream_concat.launches = 0
+    counted = {"sample_pack": sample_pack.sample_pack,
+               "stream_concat": stream_concat.stream_concat,
+               "vlc_pack": vlc_pack.vlc_pack,
+               "merge_codesizes": merge_codesizes.merge_codesizes}
+    for fn in counted.values():
+        fn.launches = 0
     jpegs = engine.encode_batch(rgb, param, device=dev)
-    launches = {"sample_pack": sample_pack.sample_pack.launches,
-                "stream_concat": stream_concat.stream_concat.launches}
+    launches = {k: fn.launches for k, fn in counted.items()}
     with plain_forced():
         plain_jpegs = engine.encode_batch(rgb, param, device=dev)
     same = jpegs == plain_jpegs
     emit("main_path", images=len(jpegs), launches=launches,
          bytes_total=sum(len(j) for j in jpegs), byte_equal_plain=same)
-    need(all(v > 0 for v in launches.values()), "main path ran both kernels")
+    need(launches["sample_pack"] > 0 and launches["stream_concat"] > 0,
+         "main path ran both kernels")
     need(same, "main path bytes equal the plain-forced path")
     need(all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9" for j in jpegs),
          "SOI/EOI markers")
@@ -305,28 +349,269 @@ def main() -> int:
     sp_ops = n * (1250 + 63 * 7) + ac_nonzero * 20
     sc_bytes = used_words * 4 + 12 * n + BATCH * bucket * 4
     sc_ops = used_words * 12
-    rows = []
-    for name, src_file, replaces, ms, plain, nbytes, ops, err in [
-            ("sample_pack", "sjpeg_tpu_torch/csrc/sample_pack.cu",
-             "sjpeg_tpu/ops/pallas_quant_pack.py:340", sp_ms, sp_plain_ms,
-             sp_bytes, sp_ops, err1),
-            ("stream_concat", "sjpeg_tpu_torch/csrc/stream_concat.cu",
-             "sjpeg_tpu/ops/pallas_tree_concat.py:371", sc_ms, sc_plain_ms,
-             sc_bytes, sc_ops, err2)]:
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / H100_OPS_PER_S * 1e3
-        rows.append({"name": name, "route": "cuda", "source": src_file,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": None, "bytes": nbytes, "operations": ops})
+    rows = [
+        kernel_row("sample_pack", "sjpeg_tpu_torch/csrc/sample_pack.cu",
+                   "sjpeg_tpu/ops/pallas_quant_pack.py:340",
+                   launches["sample_pack"], err1, sp_ms, sp_plain_ms,
+                   sp_bytes, sp_ops),
+        kernel_row("stream_concat", "sjpeg_tpu_torch/csrc/stream_concat.cu",
+                   "sjpeg_tpu/ops/pallas_tree_concat.py:371",
+                   launches["stream_concat"], err2, sc_ms, sc_plain_ms,
+                   sc_bytes, sc_ops)]
+    del words, bits, pwords, pbits, out, pout, sinter, blocks, src
+    torch.cuda.empty_cache()
+    rows += method4_phases(card, rgb)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def method4_phases(card: str, rgb: np.ndarray) -> list:
+    """The method-4 path on the same batch: m4_parity, m4_path, m4_cases,
+    m4_timing and m4_breakdown; returns the kernel rows of vlc_pack and
+    merge_codesizes."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, kernels, pipeline, state
+    from sjpeg_tpu_torch.huffman import k3_default_tables
+    from sjpeg_tpu_torch.ops import (huffman_device, merge_codesizes,
+                                     sample_pack, stream_concat, vlc_pack)
+    from sjpeg_tpu_torch.params import method_flags
+
+    dev = torch.device(DEVICE)
+    param = method4(C.YUV_420)
+    flags = method_flags(param.method)
+    layout = pipeline.component_layout(C.YUV_420, WIDTH, HEIGHT)
+    nb = tuple(layout.nb_blocks)
+    bucket = engine._bucket(layout, WIDTH, HEIGHT, 4.0)
+
+    # ---- m4_parity: the path's own inputs, each kernel vs plain ---------
+    merge_states = []
+
+    def record(*args):
+        merge_states.append(args)
+        return merge_codesizes.merge_codesizes(*args)
+
+    src = torch.from_numpy(rgb).to(dev)
+    coeffs, histos = engine._stage_batch_coeffs(
+        src, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH)
+    _, quant = engine._fit_quantizers(histos, param, 2, BATCH, False)
+    iq, ib = state.arrays_to_device(*quant, device=dev)
+    vlc_state, freqs = engine._stage_batch_quantize(
+        coeffs, iq, ib, True, nb, BATCH, BATCH)
+    del coeffs, src
+    with mock.patch.object(huffman_device, "merge_codesizes", record):
+        dcl, acl, _, _ = engine._stage_tables(freqs, flags, 2, BATCH, False,
+                                              dev)
+    k3_dcl, k3_acl = state.arrays_to_device(
+        *engine._host_luts(k3_default_tables()), device=dev)
+    rl, dc, group = vlc_state
+    fields = (rl["run"], rl["size"], rl["code"], dc, group)
+    n = dc.shape[0]
+
+    words, bits = vlc_pack.vlc_pack(*fields, dcl, acl)
+    pwords, pbits = vlc_pack.vlc_pack_plain(*fields, dcl, acl)
+    torch.cuda.synchronize()
+    err_sets = max_err([(words, pwords), (bits, pbits)])
+    del pwords
+    swords, sbits = vlc_pack.vlc_pack(*fields, k3_dcl, k3_acl)
+    pswords, psbits = vlc_pack.vlc_pack_plain(*fields, k3_dcl, k3_acl)
+    torch.cuda.synchronize()
+    err_shared = max_err([(swords, pswords), (sbits, psbits)])
+    del swords, pswords
+    merge_out = [merge_codesizes.merge_codesizes(*a) for a in merge_states]
+    merge_plain = [merge_codesizes.merge_codesizes_plain(*a)
+                   for a in merge_states]
+    torch.cuda.synchronize()
+    err_merge = [max_err([pair]) for pair in zip(merge_out, merge_plain)]
+    emit("m4_parity", blocks=n, bucket=bucket,
+         vlc_pack_per_image_max_abs_err=err_sets,
+         vlc_pack_shared_max_abs_err=err_shared,
+         merge_codesizes_shapes=[list(a[0].shape) for a in merge_states],
+         merge_codesizes_max_abs_err=err_merge,
+         total_bits=int(bits.long().sum()))
+    need(err_sets == 0 and err_shared == 0,
+         "vlc_pack bit-exact against its plain version (both LUT variants)")
+    need(len(merge_states) == 2 and max(err_merge) == 0,
+         "merge_codesizes exact against its plain version (DC and AC)")
+
+    # ---- m4_path --------------------------------------------------------
+    counted = {"vlc_pack": vlc_pack.vlc_pack,
+               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "stream_concat": stream_concat.stream_concat,
+               "sample_pack": sample_pack.sample_pack}
+    for fn in counted.values():
+        fn.launches = 0
+    jpegs = engine.encode_batch(rgb, param, device=dev)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    with plain_forced():
+        plain_jpegs = engine.encode_batch(rgb, param, device=dev)
+    same = jpegs == plain_jpegs
+    emit("m4_path", images=len(jpegs), launches=launches,
+         bytes_total=sum(len(j) for j in jpegs), byte_equal_plain=same)
+    need(all(launches[k] > 0 for k in ("vlc_pack", "merge_codesizes",
+                                       "stream_concat")),
+         "the method-4 path ran vlc_pack, merge_codesizes, stream_concat")
+    need(same, "method-4 bytes equal the plain-forced path")
+    need(all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9" for j in jpegs),
+         "SOI/EOI markers")
+
+    # ---- m4_cases -------------------------------------------------------
+    cases = {}
+    for name, mode, (b, h, w), q, method, share, budget in [
+            ("method1", C.YUV_420, (4, 512, 512), 75, 1, False, 4.0),
+            ("method3", C.YUV_420, (4, 512, 512), 75, 3, False, 4.0),
+            ("shared_statistics", C.YUV_420, (4, 512, 512), 75, 4, True, 4.0),
+            ("444", C.YUV_444, (4, 512, 512), 75, 4, False, 4.0),
+            ("400", C.YUV_400, (4, 512, 512), 75, 4, False, 4.0),
+            ("420_1000x750", C.YUV_420, (4, 750, 1000), 75, 4, False, 4.0),
+            ("nv12", C.YUV_420, (4, 512, 512), 75, 4, False, 4.0),
+            ("overflow_per_image", C.YUV_420, (2, 256, 256), 95, 4, False,
+             0.0),
+            ("overflow_shared", C.YUV_420, (2, 256, 256), 95, 4, True, 0.0)]:
+        img = make_rgb(b, h, w, SEED + 100 + len(cases))
+        if name.startswith("overflow"):
+            img[0] = np.random.RandomState(SEED).randint(0, 256, (h, w, 3))
+        p = method4(mode, q, method)
+
+        def run():
+            if name == "nv12":
+                y = img[..., 0]
+                uv = np.stack([img[:, ::2, ::2, 1], img[:, ::2, ::2, 2]], -1)
+                return engine.encode_batch_nv12(y, uv, p, budget,
+                                                device=dev)
+            return engine.encode_batch(img, p, budget, share, device=dev)
+
+        with mock.patch.object(engine, "_repack_one",
+                               wraps=engine._repack_one) as spy:
+            got = run()
+        with plain_forced():
+            cases[name] = got == run()
+        if name.startswith("overflow"):
+            cases[name + "_repacked"] = spy.call_count >= 1
+    small = make_rgb(2, 40, 24, SEED)
+    for share in (False, True):
+        cases["gpu_equals_cpu" + ("_shared" if share else "")] = (
+            engine.encode_batch(small, param, share_statistics=share,
+                                device=dev)
+            == engine.encode_batch(small, param, share_statistics=share,
+                                   device="cpu"))
+    emit("m4_cases", **cases)
+    need(all(cases.values()), "every method-4 case byte-equal")
+
+    # ---- m4_timing ------------------------------------------------------
+    vp_fn = kernels.function("vlc_pack", "sjpeg_vlc_pack", vlc_pack._ARGTYPES)
+    mc_fn = kernels.function("merge_codesizes", "sjpeg_merge_codesizes",
+                             merge_codesizes._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch_vlc_pack(dl, al, n_sets):
+        kernels.check(vp_fn(*(t.data_ptr() for t in fields), dl.data_ptr(),
+                            al.data_ptr(), words.data_ptr(), bits.data_ptr(),
+                            n, n // n_sets, n_sets, stream), "vlc_pack")
+
+    merge_args = []
+    for freqw, active, comp, cs, nleft, steps in merge_states:
+        act = active.to(torch.int32).contiguous()
+        out = torch.empty_like(freqw)
+        merge_args.append((freqw, act, comp, cs, nleft, out, steps))
+
+    def launch_merge(freqw, act, comp, cs, nleft, out, steps):
+        kernels.check(mc_fn(freqw.data_ptr(), act.data_ptr(), comp.data_ptr(),
+                            cs.data_ptr(), nleft.data_ptr(), out.data_ptr(),
+                            freqw.shape[0], freqw.shape[1], steps, stream),
+                      "merge_codesizes")
+
+    vp_ms = event_ms(lambda: launch_vlc_pack(dcl, acl, BATCH), 20)
+    vp_shared_ms = event_ms(lambda: launch_vlc_pack(k3_dcl, k3_acl, 1), 20)
+    mc_ms = [event_ms(lambda a=a: launch_merge(*a), 20) for a in merge_args]
+    vp_plain_ms = event_ms(lambda: vlc_pack.vlc_pack_plain(*fields, dcl, acl),
+                           3)
+    mc_plain_ms = [event_ms(lambda a=a: merge_codesizes.merge_codesizes_plain(
+        *a), 3) for a in merge_states]
+    e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 5)
+    mpx = BATCH * HEIGHT * WIDTH / 1e6
+    emit("m4_timing", gpu=card, vlc_pack_ms=vp_ms,
+         vlc_pack_shared_ms=vp_shared_ms, vlc_pack_plain_ms=vp_plain_ms,
+         merge_codesizes_dc_ac_ms=mc_ms,
+         merge_codesizes_plain_dc_ac_ms=mc_plain_ms,
+         encode_batch_ms=e2e_ms, encode_batch_mpx_per_s=mpx / (e2e_ms / 1e3),
+         megapixels=mpx)
+
+    # ---- m4_breakdown: one encode_batch, host clock, synchronised -------
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    s = stage("h2d", lambda: torch.from_numpy(rgb).to(dev))
+    co, hi = stage("colour_fdct_histograms", lambda: engine._stage_batch_coeffs(
+        s, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH))
+    qms, qa = stage("host_fit", lambda: engine._fit_quantizers(
+        hi, param, 2, BATCH, False))
+    vs, fr = stage("quantize_interleave_stats", lambda: (
+        engine._stage_batch_quantize(
+            co, *state.arrays_to_device(*qa, device=dev), True, nb, BATCH,
+            BATCH)))
+    del co
+    huffman_device.optimal_code_luts.any_reads = 0
+    dl, al, _, desc = stage("tables", lambda: engine._stage_tables(
+        fr, flags, 2, BATCH, False, dev))
+    any_reads = huffman_device.optimal_code_luts.any_reads
+    w_, b_ = stage("vlc_pack", lambda: vlc_pack.vlc_pack(
+        vs[0]["run"], vs[0]["size"], vs[0]["code"], vs[1], vs[2], dl, al))
+    o_, t_ = stage("stream_concat", lambda: stream_concat.stream_concat(
+        w_, b_, BATCH, bucket))
+
+    def fetch():
+        tn = t_.cpu().numpy()
+        return tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy()
+
+    tn, wn, flat = stage("fetch", fetch)
+    stage("host_tail", lambda: [engine._assemble_jpeg(
+        layout, param, qms[i], huffman_device.tables_from_flat(flat, i, 2),
+        engine._finalize_scan_bytes(wn[i], int(tn[i])))
+        for i in range(BATCH)])
+    emit("m4_breakdown", gpu=card, ms=stages, any_reads=any_reads,
+         fetched_words=int(wn.size))
+
+    # ---- kernel rows ----------------------------------------------------
+    size = rl["size"]
+    coded = (size[:, 1:] > 0)
+    n_coded = int(coded.sum())
+    n_zrl = int(torch.where(coded, rl["run"][:, 1:] >> 4, 0).sum())
+    lut_bytes = 4 * (dcl.numel() + acl.numel())
+    # each input read once (three [N, 64] int32 fields, DC codes, groups,
+    # the per-image LUTs), each output written once (64 words, 1 count)
+    vp_bytes = 3 * 4 * n * 64 + 8 * n + lut_bytes + 4 * n * 64 + 4 * n
+    # 32-bit operations: ~6 per position to unpack and test the fields,
+    # ~20 per coded coefficient and ~8 per ZRL to look up and pack, ~30 a
+    # block for the DC code, EOB and flush
+    vp_ops = n * (64 * 6 + 30) + n_coded * 20 + n_zrl * 8
+    mc_bytes = mc_ops = 0
+    for freqw, _, _, _, nleft, steps in merge_states:
+        g, w = freqw.shape
+        mc_bytes += 4 * (5 * g * w + g)
+        # ~12 per slot per merge step a row really runs (its active nodes
+        # less one): two key compares, the merge and relabel updates
+        mc_ops += int((nleft - 1).clamp(0, steps).sum()) * w * 12
+    return [
+        kernel_row("vlc_pack", "sjpeg_tpu_torch/csrc/vlc_pack.cu",
+                   "sjpeg_tpu/ops/pallas_vlc_pack.py:534",
+                   launches["vlc_pack"], max(err_sets, err_shared), vp_ms,
+                   vp_plain_ms, vp_bytes, vp_ops, shared_ms=vp_shared_ms),
+        kernel_row("merge_codesizes", "sjpeg_tpu_torch/csrc/merge_codesizes.cu",
+                   "sjpeg_tpu/ops/huffman_device.py:101",
+                   launches["merge_codesizes"], max(err_merge), sum(mc_ms),
+                   sum(mc_plain_ms), mc_bytes, mc_ops, dc_ac_ms=mc_ms,
+                   serial_steps=[a[5] for a in merge_states])]
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ Values are the reference encoder's behavioural contract (webmproject/sjpeg):
 - JPEG Annex K.1 default quantization matrices (src/enc.cc:80-96)
 - JPEG Annex K.3 default Huffman tables (src/enc.cc:368-421)
 - fixed-point precision of the quantizer (src/enc.cc:327-330)
+- adaptive-quantization histogram and fit parameters (src/enc.cc:43-61)
 - fixed-point RGB->YUV coefficients, BT.601 full range (src/colors_rgb.cc:17-31)
 - fDCT cosine tables, 15-bit (src/fdct.cc:28-43)
 """
@@ -68,6 +69,27 @@ DEFAULT_METHOD = 4
 DEFAULT_BIAS = 0x78              # AC rounding bias, 8-bit fixed point
 DEFAULT_DELTA_MAX_LUMA = 12      # adaptive-quant max positive delta (luma)
 DEFAULT_DELTA_MAX_CHROMA = 1     # adaptive-quant max positive delta (chroma)
+
+# Adaptive-quantization histogram parameters (enc.cc:43-61, sjpegi.h:176-202)
+HSHIFT = 2                    # histogram binning shift on |coeff|
+HHALF = 1 << HSHIFT >> 1
+MAX_HISTO_DCT_COEFF = 1 << (9 - HSHIFT)  # number of histogram bins (=128)
+QDELTA_MIN = -12
+QDELTA_MAX = 12
+QSIZE = 1 + QDELTA_MAX - QDELTA_MIN      # = 25
+HLAMBDA = 0x80
+DENSITY_THRESHOLD = 0.5
+CORRELATION_THRESHOLD = 0.5
+# Bitmap of raster positions whose quantizer is never tuned (DC + 2 lowest AC).
+OMITTED_CHANNELS = 0x103
+
+# Gaussian (sigma ~= 3) weights over the QSIZE delta window used by the
+# lambda least-squares fit of AnalyseHisto (enc.cc:986-991).
+HISTO_WEIGHT = np.array([
+    0, 0, 0, 0, 0,
+    1, 5, 16, 43, 94, 164, 228, 255, 228, 164, 94, 43, 16, 5, 1,
+    0, 0, 0, 0, 0,
+], dtype=np.float64)
 
 # ---------------------------------------------------------------------------
 # RGB -> YUV fixed point (BT.601 full range), FRAC = 16 (colors_rgb.cc:17-31)

@@ -3,8 +3,10 @@
 // MSB-first bit packing of one 8x8 block.
 //
 // Every function is __host__ __device__ so the same code builds with nvcc
-// for the kernels (sample_pack.cu) and with a host compiler for tests, which
-// supply their own empty __host__/__device__ definitions.
+// for the kernels (sample_pack.cu, vlc_pack.cu) and with a host compiler for
+// tests, which supply their own empty __host__/__device__ definitions.  The
+// emission half, emit_block, is shared: sample_pack feeds it the fields it
+// derives from the quantized coefficients, vlc_pack the fields it is given.
 //
 // Bit-exact contract: the result equals the port's plain PyTorch chain
 // ops/fdct.fdct_blocks -> ops/quantize -> ops/vlc.block_entries_grouped ->
@@ -166,6 +168,46 @@ struct BitSink {
   SJ_HD void put_packed(uint32_t packed) { put(packed >> 16, packed & 0xFFu); }
 };
 
+// Emission half of one block: the DC code (n | suffix << 4) coded with the
+// packed (code << 16 | len) DC LUT row dc_lut[16], then for zigzag positions
+// k = 1..63 the fields that fields(k, run, size, code) returns (size 0: a
+// zero coefficient, skipped) coded with the AC LUT row ac_lut[256]: ZRL
+// escapes while run >= 16, the (run, size) symbol and the suffix bits, and
+// EOB unless position 63 is coded.  `fields` is called once per position,
+// in order.  Writes out[0..63] (zero past the stream) and returns the exact
+// bit count.
+template <typename Fields>
+SJ_HD int emit_block(uint32_t dc_code, const uint32_t* dc_lut,
+                     const uint32_t* ac_lut, Fields&& fields, uint32_t* out) {
+  BitSink sink{out, 0, 0, 0};
+
+  // DC: Huffman code of the size category, then the suffix bits
+  const uint32_t dc_len = dc_code & 0x0Fu;
+  const uint32_t dc_packed = dc_lut[dc_len];
+  sink.put(((dc_packed >> 16) << dc_len) | (dc_code >> 4),
+           (dc_packed & 0xFFu) + dc_len);
+
+  const uint32_t esc = ac_lut[0xF0];
+  int last = 0;
+#pragma unroll
+  for (int k = 1; k < 64; ++k) {
+    uint32_t run = 0, size = 0, code = 0;
+    fields(k, run, size, code);
+    if (size == 0) continue;
+    last = k;
+    for (; run >= 16u; run -= 16u) sink.put_packed(esc);   // ZRL
+    const uint32_t sym = ac_lut[(run << 4) | size];
+    sink.put(((sym >> 16) << size) | code, (sym & 0xFFu) + size);
+  }
+  if (last < 63) sink.put_packed(ac_lut[0x00]);              // EOB
+
+  const int total = 32 * sink.nwords + sink.nacc;
+  if (sink.nacc > 0 && sink.nwords < kWordsPerBlock)
+    out[sink.nwords++] = (uint32_t)(sink.acc << (32 - sink.nacc));
+  for (int w = sink.nwords; w < kWordsPerBlock; ++w) out[w] = 0u;
+  return total;
+}
+
 // One block: raster samples x[64] (destroyed), its DC diff code
 // (n | suffix << 4), its table group g (0 luma, 1 chroma), quantizer rows
 // iquant/bias [2 * 64] (raster), packed (code << 16 | len) LUTs dc_lut
@@ -178,39 +220,23 @@ SJ_HD int encode_block(uint32_t x[64], uint32_t dc_code, int g,
   fdct_block(x);
   const uint32_t* iq = iquant + 64 * g;
   const uint32_t* ib = bias + 64 * g;
-  const uint32_t* ac = ac_lut + 256 * g;
-  BitSink sink{out, 0, 0, 0};
-
-  // DC: Huffman code of the size category, then the suffix bits
-  const uint32_t dc_len = dc_code & 0x0Fu;
-  const uint32_t dc_packed = dc_lut[16 * g + dc_len];
-  sink.put(((dc_packed >> 16) << dc_len) | (dc_code >> 4),
-           (dc_packed & 0xFFu) + dc_len);
-
   const int zigzag[64] = SJPEG_ZIGZAG;
-  const uint32_t esc = ac[0xF0];
   int last = 0;
-#pragma unroll
-  for (int k = 1; k < 64; ++k) {
+  // zigzag run/size/code of the quantized coefficient at position k
+  auto fields = [&](int k, uint32_t& run, uint32_t& size, uint32_t& code) {
     const int p = zigzag[k];
     const int32_t q = quantize((int32_t)x[p], iq[p], ib[p]);
-    if (q == 0) continue;
+    if (q == 0) {
+      size = 0;
+      return;
+    }
     const uint32_t mag = (uint32_t)(q < 0 ? -q : q);
-    const uint32_t size = calc_log2(mag);
-    const uint32_t code = (q < 0 ? ~mag : mag) & ((1u << size) - 1u);
-    uint32_t run = (uint32_t)(k - last - 1);
+    size = calc_log2(mag);
+    code = (q < 0 ? ~mag : mag) & ((1u << size) - 1u);
+    run = (uint32_t)(k - last - 1);
     last = k;
-    for (; run >= 16u; run -= 16u) sink.put_packed(esc);   // ZRL
-    const uint32_t sym = ac[(run << 4) | size];
-    sink.put(((sym >> 16) << size) | code, (sym & 0xFFu) + size);
-  }
-  if (last < 63) sink.put_packed(ac[0x00]);                  // EOB
-
-  const int total = 32 * sink.nwords + sink.nacc;
-  if (sink.nacc > 0 && sink.nwords < kWordsPerBlock)
-    out[sink.nwords++] = (uint32_t)(sink.acc << (32 - sink.nacc));
-  for (int w = sink.nwords; w < kWordsPerBlock; ++w) out[w] = 0u;
-  return total;
+  };
+  return emit_block(dc_code, dc_lut + 16 * g, ac_lut + 256 * g, fields, out);
 }
 
 }  // namespace sjpeg

@@ -1,12 +1,27 @@
-"""Batched method-0 JPEG encode on the GPU: the port's main path.
+"""Batched JPEG encode on the GPU: the port's engine.
 
-The fixed-table path of the JAX engine (no adaptive quantization, no
-two-pass Huffman, K.3 default tables), with the same bucket formula and
-the same output bytes:
+Two paths, with the JAX engine's bucket formula and the same output bytes.
+
+Method 0 (K.3 tables, no adaptive quantization), fused:
 
   colour conversion + blockize            ops/colorspace   [torch]
   DC predictor chain                      ops/fdct.fdct_dc, ops/vlc
   fDCT + quantize + VLC + per-block pack  ops/sample_pack  [CUDA kernel 1]
+  per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
+  fetch, stuffing, markers                bitio, headers   [host]
+
+Methods 1, 3 and 4 (two-pass optimal Huffman and/or adaptive
+quantization; per-image statistics, or one set from the whole batch with
+share_statistics=True), staged as the JAX engine stages them off the
+relay (`_encode_batch_optimized`):
+
+  colour + fDCT + coefficient histograms  _stage_batch_coeffs [torch]
+  lambda fit per image and table group    adaptive.analyse_histo [host]
+  quantize + MCU interleave + VLC fields
+    + DC chain + symbol frequencies       _stage_batch_quantize [torch]
+  optimal tables: the merge loop          ops/merge_codesizes [CUDA kernel 4]
+    and its torch tail                    ops/huffman_device
+  Huffman lookup + per-block pack         ops/vlc_pack     [CUDA kernel 3]
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
   fetch, stuffing, markers                bitio, headers   [host]
 
@@ -18,6 +33,7 @@ their ROADMAP item.
 """
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -25,11 +41,13 @@ import torch
 
 from . import constants as C
 from . import headers, pipeline, spec, state
+from .adaptive import analyse_histo
 from .bitio import words_to_scan
-from .huffman import build_code_lut, k3_default_tables
-from .ops import colorspace, fdct, pack, quantize, sample_pack, \
-    stream_concat, vlc
-from .params import EncoderParam
+from .huffman import (build_code_lut, k3_default_tables,
+                      optimal_tables_from_freqs)
+from .ops import colorspace, fdct, huffman_device, pack, quantize, \
+    sample_pack, stream_concat, vlc, vlc_pack
+from .params import EncoderParam, method_flags
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,11 +60,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_supported(param: EncoderParam, yuv_mode: int) -> None:
-    if param.method != 0:
+    if method_flags(param.method)["use_trellis"]:
         raise NotImplementedError(
-            f"method {param.method} is not ported yet (ROADMAP A5: methods "
-            "1-6, A6: methods 7/8); the port runs method 0: "
-            "huffman_compress=False, adaptive_quantization=False")
+            f"trellis quantization (use_trellis, method {param.method}) is "
+            "not ported yet (ROADMAP A6); the port runs methods 0, 1, 3 "
+            "and 4")
     if param.passes > 1:
         raise NotImplementedError(
             "target-size / target-PSNR search (passes > 1) is not ported "
@@ -65,6 +83,15 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _slot_groups(nb_blocks, n_mcu: int, device) -> torch.Tensor:
+    """[n_mcu * blocks per MCU] int32 table group of each interleaved
+    block: 0 for luma, 1 for chroma."""
+    slot_group = torch.zeros(sum(nb_blocks), dtype=torch.int32,
+                             device=device)
+    slot_group[nb_blocks[0]:] = 1
+    return slot_group.repeat(n_mcu)
+
+
 def _interleave_samples(blocks, iquant, ibias, nb_blocks, n_images: int = 1):
     """MCU-interleave the component sample blocks for sample_pack, with
     each block's DC diff code and table group.
@@ -73,7 +100,6 @@ def _interleave_samples(blocks, iquant, ibias, nb_blocks, n_images: int = 1):
     quantized DC of every block is computed here, ahead of the per-block
     kernel, through the collapsed fDCT chain (ops/fdct.fdct_dc).  Samples
     travel as int16, which holds RGB chroma's +128 exactly."""
-    mcu_blocks = sum(nb_blocks)
     n_mcu = blocks[0].shape[0] // nb_blocks[0]
     sinter = torch.cat([b.to(torch.int16).reshape(n_mcu, nb, 64)
                         for b, nb in zip(blocks, nb_blocks)],
@@ -85,10 +111,7 @@ def _interleave_samples(blocks, iquant, ibias, nb_blocks, n_images: int = 1):
                                        ibias[g, 0])
         dc_cols.append(vlc.dc_diff_codes(dcq, n_images).reshape(n_mcu, nb))
     dc_codes = torch.cat(dc_cols, dim=1).reshape(-1)
-    slot_group = torch.zeros(mcu_blocks, dtype=torch.int32,
-                             device=sinter.device)
-    slot_group[nb_blocks[0]:] = 1
-    return sinter, dc_codes, slot_group.repeat(n_mcu)
+    return sinter, dc_codes, _slot_groups(nb_blocks, n_mcu, sinter.device)
 
 
 def encode_batch_core(src, iquant, ibias, dc_luts, ac_luts, *,
@@ -113,20 +136,29 @@ def encode_batch_core(src, iquant, ibias, dc_luts, ac_luts, *,
 
 
 def encode_batch(rgbs, param: Optional[EncoderParam] = None,
-                 bits_per_pixel_budget: float = 4.0, device=None):
+                 bits_per_pixel_budget: float = 4.0,
+                 share_statistics: bool = False, device=None):
     """Encode a uint8 batch [B, H, W, 3] (numpy or torch) with pinned
-    YUV_420, YUV_444 or YUV_400 and method 0.  Returns a list of complete
-    JPEG byte strings, byte-identical to sjpeg_tpu.engine.encode_batch."""
+    YUV_420, YUV_444 or YUV_400 and method 0, 1, 3 or 4.  Returns a list
+    of complete JPEG byte strings, byte-identical to
+    sjpeg_tpu.engine.encode_batch.
+
+    Methods 1, 3 and 4 optimize per image by default (per-image adaptive
+    matrices and per-image optimal Huffman tables, as the reference
+    does); share_statistics=True derives one table set / tuned matrix
+    pair from the whole batch's statistics instead."""
     param = param or EncoderParam()
     dev = resolve_device(device)
     h, w = rgbs.shape[1:3]
     return _encode_batch_src(_to_device(rgbs, dev), "rgb", param.yuv_mode,
-                             w, h, param, bits_per_pixel_budget)
+                             w, h, param, bits_per_pixel_budget,
+                             share_statistics)
 
 
 def encode_batch_yuv(y, u, v, is_420: bool,
                      param: Optional[EncoderParam] = None,
-                     bits_per_pixel_budget: float = 4.0, device=None):
+                     bits_per_pixel_budget: float = 4.0,
+                     share_statistics: bool = False, device=None):
     """Batched planar-YUV encode: y [B, H, W] uint8 plus chroma planes
     ([B, ceil(H/2), ceil(W/2)] when `is_420`, else full size)."""
     param = param or EncoderParam()
@@ -135,35 +167,39 @@ def encode_batch_yuv(y, u, v, is_420: bool,
     src = tuple(_to_device(p, dev) for p in (y, u, v))
     return _encode_batch_src(src, "planes",
                              C.YUV_420 if is_420 else C.YUV_444, w, h,
-                             param, bits_per_pixel_budget)
+                             param, bits_per_pixel_budget, share_statistics)
 
 
 def encode_batch_gray(y, param: Optional[EncoderParam] = None,
-                      bits_per_pixel_budget: float = 4.0, device=None):
+                      bits_per_pixel_budget: float = 4.0,
+                      share_statistics: bool = False, device=None):
     """Batched grayscale encode: y [B, H, W] uint8 (YUV 4:0:0)."""
     param = param or EncoderParam()
     dev = resolve_device(device)
     h, w = y.shape[1:3]
     return _encode_batch_src((_to_device(y, dev),), "planes", C.YUV_400,
-                             w, h, param, bits_per_pixel_budget)
+                             w, h, param, bits_per_pixel_budget,
+                             share_statistics)
 
 
 def encode_batch_nv12(y, uv, param: Optional[EncoderParam] = None,
-                      bits_per_pixel_budget: float = 4.0, device=None):
+                      bits_per_pixel_budget: float = 4.0,
+                      share_statistics: bool = False, device=None):
     """Batched semi-planar NV12 encode: y [B, H, W], uv
     [B, ceil(H/2), ceil(W/2), 2] interleaved U/V; the split is a device
     slice."""
     uv = _to_device(uv, resolve_device(device))
     return encode_batch_yuv(y, uv[..., 0], uv[..., 1], True, param,
-                            bits_per_pixel_budget, device)
+                            bits_per_pixel_budget, share_statistics, device)
 
 
 def encode_batch_nv21(y, vu, param: Optional[EncoderParam] = None,
-                      bits_per_pixel_budget: float = 4.0, device=None):
+                      bits_per_pixel_budget: float = 4.0,
+                      share_statistics: bool = False, device=None):
     """Batched semi-planar NV21 encode (V/U interleaved chroma)."""
     vu = _to_device(vu, resolve_device(device))
     return encode_batch_yuv(y, vu[..., 1], vu[..., 0], True, param,
-                            bits_per_pixel_budget, device)
+                            bits_per_pixel_budget, share_statistics, device)
 
 
 def _quant_matrices(param: EncoderParam):
@@ -190,13 +226,19 @@ def _host_luts(tables):
 
 def _encode_batch_src(src, src_kind: str, yuv_mode: int, w: int, h: int,
                       param: EncoderParam,
-                      bits_per_pixel_budget: float = 4.0):
+                      bits_per_pixel_budget: float = 4.0,
+                      share_statistics: bool = False):
     """Shared batched encode over a device source (RGB batch or
     component plane tuple)."""
     _check_supported(param, yuv_mode)
     if not (0 < w <= C.MAX_DIMENSION and 0 < h <= C.MAX_DIMENSION):
         raise ValueError(f"image size {w} x {h} is outside 1..."
                          f"{C.MAX_DIMENSION}")
+    flags = method_flags(param.method)
+    if flags["use_adaptive_quant"] or flags["optimize_size"]:
+        return _encode_batch_optimized(src, src_kind, yuv_mode, w, h, param,
+                                       bits_per_pixel_budget,
+                                       share_statistics)
     b = src.shape[0] if src_kind == "rgb" else src[0].shape[0]
     device = src.device if src_kind == "rgb" else src[0].device
     layout = pipeline.component_layout(yuv_mode, w, h)
@@ -205,11 +247,7 @@ def _encode_batch_src(src, src_kind: str, yuv_mode: int, w: int, h: int,
     iq, ib, dc_luts, ac_luts = state.tables_from_numpy(
         *_quant_arrays(qms), *_host_luts(tables), device)
 
-    n_blocks = layout.mb_w * layout.mb_h * sum(layout.nb_blocks)
-    max_words = n_blocks * pack.WORDS_PER_BLOCK
-    bucket = int(min(max_words,
-                     max(4096, w * h * bits_per_pixel_budget / 32)))
-
+    bucket = _bucket(layout, w, h, bits_per_pixel_budget)
     words, totals = encode_batch_core(
         src, iq, ib, dc_luts, ac_luts, yuv_mode=yuv_mode, width=w,
         height=h, nb_blocks=tuple(layout.nb_blocks), bucket=bucket,
@@ -229,6 +267,18 @@ def _encode_batch_src(src, src_kind: str, yuv_mode: int, w: int, h: int,
     return out
 
 
+def _bucket(layout, w: int, h: int, bits_per_pixel_budget: float) -> int:
+    """Words of each image's output row: the budget, at least 4,096 words
+    and at most the image's worst case of 64 words a block."""
+    n_blocks = _blocks_per_image(layout)
+    return int(min(n_blocks * pack.WORDS_PER_BLOCK,
+                   max(4096, w * h * bits_per_pixel_budget / 32)))
+
+
+def _blocks_per_image(layout) -> int:
+    return layout.mb_w * layout.mb_h * sum(layout.nb_blocks)
+
+
 def _host_fallback_one(src, src_kind: str, i: int, yuv_mode: int, w: int,
                        h: int, param: EncoderParam) -> bytes:
     """Re-encode image `i` after a bucket overflow.  The JAX engine sends it
@@ -239,6 +289,251 @@ def _host_fallback_one(src, src_kind: str, i: int, yuv_mode: int, w: int,
                                                        for p in src)
     return _encode_batch_src(one, src_kind, yuv_mode, w, h, param,
                              bits_per_pixel_budget=math.inf)[0]
+
+
+# ---------------------------------------------------------------------------
+# Methods 1, 3 and 4: the staged optimized path
+# ---------------------------------------------------------------------------
+
+def _stage_batch_coeffs(src, src_kind: str, yuv_mode: int, width: int,
+                        height: int, with_histo: bool, n_images: int = 1):
+    """Batched RGB (or planar tuple) -> per-component [N_c, 64] int32 fDCT
+    coefficients (+ (luma, chroma) |c| >> HSHIFT histograms, [B, 64, bins]
+    per image when n_images > 1, else summed over the batch [64, bins];
+    chroma sums U and V, and is zero for gray)."""
+    if src_kind == "planes":
+        blocks = colorspace.planes_to_blocks(src, yuv_mode, width, height)
+    else:
+        blocks = colorspace.rgb_to_blocks(src, yuv_mode, width, height)
+    coeffs = [fdct.fdct_blocks(b) for b in blocks]
+    if not with_histo:
+        return coeffs, None
+    histo_l = quantize.store_histo(coeffs[0], n_images)
+    if len(coeffs) > 1:
+        histo_c = (quantize.store_histo(coeffs[1], n_images)
+                   + quantize.store_histo(coeffs[2], n_images))
+    else:
+        histo_c = torch.zeros_like(histo_l)
+    return coeffs, (histo_l, histo_c)
+
+
+def _fit_quantizers(histos, param: EncoderParam, n_groups: int, b: int,
+                    share_statistics: bool):
+    """One fetch of the histograms, then the host lambda fit per image (or
+    once for the batch) and table group -> (per-image finalized quant
+    matrices [B][2], iquant and bias rows: [2, 64] shared or [B, 2, 64]
+    per image)."""
+    base_qms = _quant_matrices(param)
+    min_qmats = param.resolved_min_quant_matrices()
+    hh = torch.stack(histos).cpu().numpy().astype(np.int64)
+
+    def tune(histo_pair):
+        qms = list(base_qms)
+        for g in range(n_groups - 1, -1, -1):
+            qdelta_max = (param.qdelta_max_luma if g == 0
+                          else param.qdelta_max_chroma)
+            tuned = analyse_histo(histo_pair[g], qms[g]["quant"],
+                                  min_qmats[g], qdelta_max)
+            qms[g] = spec.finalize_quant_matrix(tuned, min_qmats[g],
+                                                param.quantization_bias)
+        return qms
+
+    if share_statistics:
+        qms = tune(hh.reshape(2, 64, -1))
+        return [qms] * b, _quant_arrays(qms)
+    hh = hh.reshape(2, b, 64, -1)
+    # the NumPy fit releases the GIL: thread it over the images
+    with ThreadPoolExecutor(max_workers=min(8, b)) as pool:
+        per_qms = list(pool.map(lambda i: tune(hh[:, i]), range(b)))
+    arrays = [_quant_arrays(qms) for qms in per_qms]
+    return per_qms, tuple(np.stack(a) for a in zip(*arrays))
+
+
+def _interleave_quantized(coeffs, iquant, ibias, nb_blocks,
+                          n_images: int = 1):
+    """Quantize per component, interleave into MCU order, and derive the
+    zigzag VLC fields (int32 [N, 64] run/size/code, bool nz, [N] last),
+    the DC codes (the predictor resets per image) and each row's table
+    group.  iquant/ibias: [2, 64] shared, or [B, 2, 64] per image."""
+    qbs = []
+    for c, coef in enumerate(coeffs):
+        g = 0 if c == 0 else 1
+        if iquant.dim() == 3:
+            qbs.append(quantize.per_image_quantize(
+                coef, iquant[:, g], ibias[:, g], n_images))
+        else:
+            qbs.append(quantize.quantize_blocks(coef, iquant[g], ibias[g]))
+    n_mcu = qbs[0].shape[0] // nb_blocks[0]
+    qinter = torch.cat([qb.reshape(n_mcu, nb, 64)
+                        for qb, nb in zip(qbs, nb_blocks)],
+                       dim=1).reshape(-1, 64)
+    rl = vlc.run_levels(qinter, torch.int32)
+
+    dcv = qinter[:, 0].reshape(n_mcu, sum(nb_blocks))
+    dc_cols, col = [], 0
+    for nb in nb_blocks:
+        codes = vlc.dc_diff_codes(dcv[:, col:col + nb].reshape(-1), n_images)
+        dc_cols.append(codes.reshape(n_mcu, nb))
+        col += nb
+    dc_codes = torch.cat(dc_cols, dim=1).reshape(-1)
+    return rl, dc_codes, _slot_groups(nb_blocks, n_mcu, qinter.device)
+
+
+def _grouped_stats(rl, dc_codes, group, n_images: int = 1):
+    """Per-table-group symbol frequencies from interleaved VLC fields:
+    int32 ([B, 2, 12] DC, [B, 2, 256] AC) per image (rows image-major,
+    equal blocks per image), unbatched ([2, 12], [2, 256]) when
+    n_images == 1.  AC counts include a ZRL at 0xF0 for every 16 zeros
+    of a run and an EOB at 0x00 for each block not ending at position 63.
+    Integer scatter-adds are exact: no one-hot matmul."""
+    nz = rl["nz"]
+    n = nz.shape[0]
+    dev = nz.device
+    img = torch.arange(n_images, device=dev).repeat_interleave(n // n_images)
+    tab = img * 2 + group                                  # [N] table
+    sym = ((rl["run"] & 15) << 4) | rl["size"]             # 0 where not nz
+    freq_ac = torch.zeros(n_images * 512, dtype=torch.int32, device=dev)
+    freq_ac.scatter_add_(0, (tab[:, None] * 256 + sym).reshape(-1),
+                         nz.to(torch.int32).reshape(-1))
+    esc = torch.where(nz, rl["run"] >> 4, 0).sum(dim=1, dtype=torch.int32)
+    freq_ac.scatter_add_(0, tab * 256 + 0xF0, esc)
+    freq_ac.scatter_add_(0, tab * 256, (rl["last"] < 63).to(torch.int32))
+
+    # DC: the JAX one-hot over 26 = 2 x 13 size bins drops larger indices
+    dci = group * 13 + (dc_codes & 0x0F)
+    dump = n_images * 26
+    idx = torch.where(dci < 26, img * 26 + dci, dump)
+    freq_dc = torch.zeros(dump + 1, dtype=torch.int32, device=dev)
+    freq_dc.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    freq_dc = freq_dc[:dump].reshape(n_images, 2, 13)[:, :, :12]
+    freq_ac = freq_ac.reshape(n_images, 2, 256)
+    if n_images == 1:
+        return freq_dc[0], freq_ac[0]
+    return freq_dc, freq_ac
+
+
+def _stage_batch_quantize(coeffs, iquant, ibias, with_stats: bool,
+                          nb_blocks, n_images: int, stats_images: int):
+    """-> ((VLC fields, DC codes, groups), frequencies or None)."""
+    rl, dc_codes, group = _interleave_quantized(coeffs, iquant, ibias,
+                                                nb_blocks, n_images)
+    if not with_stats:
+        return (rl, dc_codes, group), None
+    return (rl, dc_codes, group), _grouped_stats(rl, dc_codes, group,
+                                                 stats_images)
+
+
+def _stage_tables(freqs, flags, n_groups: int, b: int,
+                  share_statistics: bool, device):
+    """Huffman LUTs for the pack -> (dc_luts, ac_luts, per-image host
+    tables or None, [B, 604] DHT description or None).  Per-image optimal
+    tables are built on the card and described by one flat tensor; a
+    shared optimal set is built on the host from one fetch of the batch's
+    frequencies; methods without Huffman optimization use K.3."""
+    if flags["optimize_size"] and not share_statistics:
+        dc_luts, ac_luts, nbs, desc = huffman_device.luts_and_desc_from_freqs(
+            freqs[0].reshape(b, 2, -1), freqs[1].reshape(b, 2, -1),
+            n_groups)
+        return dc_luts, ac_luts, None, huffman_device.desc_to_flat(nbs, desc)
+    if flags["optimize_size"]:
+        tables = optimal_tables_from_freqs(
+            *(f.cpu().numpy().astype(np.int64) for f in freqs), n_groups)
+        if n_groups == 1:
+            defaults = k3_default_tables()
+            tables[1], tables[3] = defaults[1], defaults[3]
+    else:
+        tables = k3_default_tables()
+    dc_luts, ac_luts = state.arrays_to_device(*_host_luts(tables),
+                                              device=device)
+    return dc_luts, ac_luts, [tables] * b, None
+
+
+def _stage_batch_pack(vlc_state, dc_luts, ac_luts, n_images: int,
+                      bucket: int):
+    """VLC fields + LUTs ([2, ...] shared or [B, 2, ...] per image) ->
+    ([n_images, bucket] int32 words, [n_images] int32 exact totals)."""
+    rl, dc_codes, group = vlc_state
+    words, bits = vlc_pack.vlc_pack(rl["run"], rl["size"], rl["code"],
+                                    dc_codes, group, dc_luts, ac_luts)
+    return stream_concat.stream_concat(words, bits, n_images, bucket)
+
+
+def _repack_one(vlc_state, dc_luts, ac_luts, i: int, per_img: int) -> bytes:
+    """Scan bytes of image i after a bucket overflow: its rows of the
+    already chosen VLC state, packed again with its own LUTs (and its
+    batch's, when shared) into a bucket of 64 words a block, which cannot
+    overflow.  A fresh single-image encode would derive other tables when
+    they came from the whole batch."""
+    rows = slice(i * per_img, (i + 1) * per_img)
+    rl, dc_codes, group = vlc_state
+    state_i = ({k: v[rows] for k, v in rl.items()}, dc_codes[rows],
+               group[rows])
+    if dc_luts.dim() == 3:
+        dc_luts, ac_luts = dc_luts[i], ac_luts[i]
+    words, totals = _stage_batch_pack(state_i, dc_luts, ac_luts, 1,
+                                      per_img * pack.WORDS_PER_BLOCK)
+    total_bits = int(totals[0])
+    return _finalize_scan_bytes(fetch_streams_batch(
+        words, np.array([total_bits]))[0], total_bits)
+
+
+def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
+                            h: int, param: EncoderParam,
+                            bits_per_pixel_budget: float,
+                            share_statistics: bool = False):
+    """Batched two-pass Huffman / adaptive-quant encode (methods 1, 3, 4).
+
+    Per-image by default: per-image adaptive matrices and per-image
+    optimal Huffman tables, byte-identical to per-image encodes
+    (src/enc.cc:1517-1580).  share_statistics=True derives one table set
+    and one tuned matrix pair from the whole batch's statistics.  Host
+    traffic: one fetch of the histograms (adaptive), of the frequencies
+    (shared optimal tables), of the totals, of the used word columns and
+    of the [B, 604] DHT description (per-image tables)."""
+    flags = method_flags(param.method)
+    b = src.shape[0] if src_kind == "rgb" else src[0].shape[0]
+    device = src.device if src_kind == "rgb" else src[0].device
+    layout = pipeline.component_layout(yuv_mode, w, h)
+    nb_blocks = tuple(layout.nb_blocks)
+    n_groups = 2 if layout.nb_comps > 1 else 1
+    stats_images = 1 if share_statistics else b
+
+    coeffs, histos = _stage_batch_coeffs(
+        src, src_kind, yuv_mode, w, h, flags["use_adaptive_quant"],
+        stats_images)
+    if flags["use_adaptive_quant"]:
+        per_qms, quant = _fit_quantizers(histos, param, n_groups, b,
+                                         share_statistics)
+    else:
+        per_qms = [_quant_matrices(param)] * b
+        quant = _quant_arrays(per_qms[0])
+    iq, ib = state.arrays_to_device(*quant, device=device)
+    vlc_state, freqs = _stage_batch_quantize(
+        coeffs, iq, ib, flags["optimize_size"], nb_blocks, b, stats_images)
+    del coeffs
+    dc_luts, ac_luts, per_tables, desc_flat = _stage_tables(
+        freqs, flags, n_groups, b, share_statistics, device)
+
+    bucket = _bucket(layout, w, h, bits_per_pixel_budget)
+    words, totals = _stage_batch_pack(vlc_state, dc_luts, ac_luts, b, bucket)
+    totals_np = totals.cpu().numpy()
+    words_np = fetch_streams_batch(words, totals_np)
+    if per_tables is None:
+        flat_np = desc_flat.cpu().numpy()
+        per_tables = [huffman_device.tables_from_flat(flat_np, i, n_groups)
+                      for i in range(b)]
+
+    out = []
+    for i in range(b):
+        total_bits = int(totals_np[i])
+        if total_bits > bucket * 32:      # bucket overflow: re-pack alone
+            scan = _repack_one(vlc_state, dc_luts, ac_luts, i,
+                               _blocks_per_image(layout))
+        else:
+            scan = _finalize_scan_bytes(words_np[i], total_bits)
+        out.append(_assemble_jpeg(layout, param, per_qms[i], per_tables[i],
+                                  scan))
+    return out
 
 
 def fetch_streams_batch(words: torch.Tensor, totals_np) -> np.ndarray:

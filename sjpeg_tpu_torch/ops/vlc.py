@@ -25,30 +25,31 @@ def calc_log2(v: torch.Tensor) -> torch.Tensor:
     x = v
     for shift in (8, 4, 2, 1):
         hit = x >= (1 << shift)
-        out = out + torch.where(hit, shift, 0)
+        out = out + hit.to(v.dtype) * shift
         x = torch.where(hit, x >> shift, x)
     return out + (v > 0).to(v.dtype)
 
 
-def run_levels(qblocks: torch.Tensor) -> dict:
+def run_levels(qblocks: torch.Tensor, dtype=torch.int64) -> dict:
     """[N, 64] quantized blocks (raster) -> zigzag-layout VLC fields.
 
-    Returns a dict of [N, 64] int64 tensors: nz (bool, AC nonzero), run
-    (zero run before), size (bit length), code (suffix bits), plus last
-    [N] (zigzag index of the last nonzero AC, 0 if none).
+    Returns a dict of [N, 64] tensors of `dtype`: nz (bool, AC nonzero),
+    run (zero run before), size (bit length), code (suffix bits), plus
+    last [N] (zigzag index of the last nonzero AC, 0 if none).  The
+    optimized path asks for int32, the layout its pack kernel reads.
     """
     zz_idx = torch.as_tensor(C.ZIGZAG, dtype=torch.int64,
                              device=qblocks.device)
-    zz = qblocks.to(torch.int64)[:, zz_idx]
-    pos = torch.arange(64, device=qblocks.device)[None, :]
+    zz = qblocks.to(dtype)[:, zz_idx]
+    pos = torch.arange(64, dtype=dtype, device=qblocks.device)[None, :]
     nz = (zz != 0) & (pos > 0)
     mag = zz.abs()
-    size = torch.where(nz, calc_log2(mag.clamp(min=1)), 0)
-    mask = torch.where(zz < 0, -1, 0)
-    code = (mag ^ mask) & ((1 << size) - 1)
-    prev = torch.cummax(torch.where(nz, pos, 0), dim=1).values
+    zero = torch.zeros((), dtype=dtype, device=qblocks.device)
+    size = torch.where(nz, calc_log2(mag.clamp(min=1)), zero)
+    code = (mag ^ -(zz < 0).to(dtype)) & ((1 << size) - 1)
+    prev = torch.cummax(torch.where(nz, pos, zero), dim=1).values
     prev_before = torch.nn.functional.pad(prev[:, :-1], (1, 0))
-    run = torch.where(nz, pos - prev_before - 1, 0)
+    run = torch.where(nz, pos - prev_before - 1, zero)
     return {"nz": nz, "run": run, "size": size, "code": code,
             "last": prev[:, -1]}
 

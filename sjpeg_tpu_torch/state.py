@@ -1,9 +1,11 @@
 """The encoder's state as the port's tensors.
 
 The encoder has no weights; its state is the quantizer rows and the Huffman
-LUTs.  `tables_from_numpy` carries them from NumPy (the JAX package's
-`engine._quant_device_arrays` / `engine._device_luts` arrays, or the
-port's own) onto a device, in the layout the kernels read.
+LUTs, shared ([2, 64] rows, [2, 16] / [2, 256] LUTs) or one set per image
+([B, 2, 64], [B, 2, 16] / [B, 2, 256]).  `tables_from_numpy` carries them
+from NumPy (the JAX package's `engine._quant_device_arrays` /
+`engine._device_luts` arrays, or the port's own) onto a device, in the
+layout the kernels read; `arrays_to_device` carries any subset of them.
 """
 
 import numpy as np
@@ -16,9 +18,14 @@ def _bits32(a) -> np.ndarray:
         np.asarray(a).astype(np.int64).astype(np.uint32).view(np.int32))
 
 
+def arrays_to_device(*arrays, device):
+    """Integer arrays with values in [0, 2^32) -> int32 tensors on
+    `device` holding the same bit patterns."""
+    return tuple(torch.from_numpy(_bits32(a)).to(device) for a in arrays)
+
+
 def tables_from_numpy(iquant, ibias, dc_luts, ac_luts, device):
-    """([2, 64] iquant, [2, 64] ibias, [2, 16] DC LUTs, [2, 256] AC LUTs)
-    -> int32 tensors on `device`; LUT entries, packed (code << 16) | len
-    uint32 values, keep their bit patterns."""
-    return tuple(torch.from_numpy(_bits32(a)).to(device)
-                 for a in (iquant, ibias, dc_luts, ac_luts))
+    """(iquant, ibias [(B,) 2, 64], DC LUTs [(B,) 2, 16], AC LUTs
+    [(B,) 2, 256]) -> int32 tensors on `device`; LUT entries, packed
+    (code << 16) | len uint32 values, keep their bit patterns."""
+    return arrays_to_device(iquant, ibias, dc_luts, ac_luts, device=device)

@@ -1,9 +1,12 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the card's bytes against the CPU path's.
 
 Imports no JAX, so it runs where only the port is installed; every test
 here needs an NVIDIA GPU and skips without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -12,7 +15,9 @@ import torch
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, state
 from sjpeg_tpu_torch.huffman import k3_default_tables
-from sjpeg_tpu_torch.ops import colorspace, sample_pack, stream_concat
+from sjpeg_tpu_torch.ops import (colorspace, huffman_device,
+                                 merge_codesizes, sample_pack, stream_concat,
+                                 vlc, vlc_pack)
 from sjpeg_tpu_torch.params import EncoderParam
 
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
@@ -62,3 +67,96 @@ def test_encode_batch_gpu_matches_cpu():
                          yuv_mode=C.YUV_420)
     assert (engine.encode_batch(rgb, param)
             == engine.encode_batch(rgb, param, device="cpu"))
+
+
+def _vlc_state(n_images, per_img, seed):
+    """int32 VLC fields, DC codes and groups of random quantized blocks
+    (zero runs past 16, dense rows), image-major."""
+    n = n_images * per_img
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-1500, 1501, (n, 64)) * (rng.rand(n, 64) < 0.2)
+    q[::5, 1:63] = 0
+    q[1::5, 1:] = rng.randint(-2, 3, (len(q[1::5]), 63))
+    rl = vlc.run_levels(torch.from_numpy(q).cuda(), torch.int32)
+    dc = vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-1023, 1024, n)).cuda(), n_images)
+    group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32)).cuda()
+    return rl, dc, group
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_images,per_img", [(3, 700), (8, 48), (2, 1024)])
+@pytest.mark.parametrize("per_image", [False, True])
+def test_vlc_pack_matches_plain_on_gpu(n_images, per_img, per_image):
+    """vlc_pack == vlc_pack_plain with shared or per-image LUTs, where a
+    CTA's 128 rows straddle two images (700), many images (48), or none
+    (1024)."""
+    _need_cuda()
+    rl, dc, group = _vlc_state(n_images, per_img, 17)
+    freqs = engine._grouped_stats(rl, dc, group, n_images)
+    dcl, acl, _, _ = huffman_device.luts_and_desc_from_freqs(*freqs)
+    if not per_image:
+        dcl, acl = dcl[-1].contiguous(), acl[-1].contiguous()
+    args = (rl["run"], rl["size"], rl["code"], dc, group, dcl, acl)
+    words, bits = vlc_pack.vlc_pack(*args)
+    pw, pb = vlc_pack.vlc_pack_plain(*args)
+    assert torch.equal(bits, pb) and torch.equal(words, pw)
+
+
+def _freq_rows(size, width, seed):
+    """Frequency rows with ties, an empty row, one and two symbols,
+    Fibonacci rows (codes past 16 and past 32 bits) and values near
+    2^30."""
+    rng = np.random.RandomState(seed)
+    fib = [1, 1]
+    while len(fib) < 40:
+        fib.append(fib[-1] + fib[-2])
+    rows = [rng.randint(0, 50, size), np.where(rng.rand(size) < 0.5, 7, 0),
+            np.zeros(size, np.int64)]
+    for picks, vals in [(1, [12345]), (2, [3, 3]), (24, fib[:24]),
+                        (40, fib), (3, [(1 << 30) - 1, 1 << 29, 5])]:
+        r = np.zeros(size, np.int64)
+        m = min(picks, size)
+        r[rng.permutation(size)[:m]] = vals[:m]
+        rows.append(r)
+    out = np.zeros((len(rows), width), np.int32)
+    out[:, :size] = np.stack(rows)
+    return torch.from_numpy(out).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,width", [(12, 16), (256, 320)])
+def test_merge_codesizes_matches_plain_on_gpu(size, width):
+    """merge_codesizes == merge_codesizes_plain on the merge states that
+    optimal_code_luts builds from adversarial rows, and the whole table
+    build gives the same LUTs either way."""
+    _need_cuda()
+    states = []
+
+    def record(*args):
+        states.append(args)
+        return merge_codesizes.merge_codesizes(*args)
+
+    freq = _freq_rows(size, width, 18)
+    with mock.patch.object(huffman_device, "merge_codesizes", record):
+        got = huffman_device.optimal_code_luts(freq, size, with_syms=True)
+    want = huffman_device.optimal_code_luts(freq.cpu(), size, with_syms=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for args in states:
+        assert torch.equal(merge_codesizes.merge_codesizes(*args),
+                           merge_codesizes.merge_codesizes_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [False, True])
+def test_method4_gpu_matches_cpu(share):
+    """Method 4 on the card == the CPU path's bytes, per-image and shared
+    statistics, on a batch that is not a multiple of 16 either way."""
+    _need_cuda()
+    rgb = np.random.RandomState(19).randint(0, 256, (2, 40, 24, 3)).astype(
+        np.uint8)
+    param = EncoderParam(yuv_mode=C.YUV_420)
+    assert (engine.encode_batch(rgb, param, share_statistics=share)
+            == engine.encode_batch(rgb, param, share_statistics=share,
+                                   device="cpu"))

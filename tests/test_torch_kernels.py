@@ -1,6 +1,7 @@
-"""The port's two kernels: their plain PyTorch versions against the JAX
-package (XLA chain and the Pallas kernel in interpret mode), and the
-shared CUDA arithmetic compiled for the host.  Comparisons are exact.
+"""The port's method-0 kernels: their plain PyTorch versions against the
+JAX package (XLA chain and the Pallas kernel in interpret mode), and the
+shared CUDA arithmetic (block_core.cuh: sample_pack's per-block encode
+and the emission half vlc_pack shares) compiled for the host.  Comparisons are exact.
 The CUDA launches themselves are tested in test_torch_cuda.py."""
 
 import ast
@@ -136,6 +137,25 @@ extern "C" void encode_blocks(const int32_t* samples, const int32_t* dc,
                                   dcl, acl, words + 64 * b);
   }
 }
+extern "C" void emit_blocks(const int32_t* run, const int32_t* size,
+                            const int32_t* code, const int32_t* dc,
+                            const int32_t* group, const uint32_t* dcl,
+                            const uint32_t* acl, uint32_t* words,
+                            int32_t* bits, int n, int per_img, int n_sets) {
+  for (int b = 0; b < n; ++b) {
+    const int set = n_sets > 1 ? b / per_img : 0;
+    const int g = group[b] & 1;
+    const int64_t row = 64 * (int64_t)b;
+    auto fields = [&](int k, uint32_t& r, uint32_t& s, uint32_t& c) {
+      r = (uint32_t)run[row + k];
+      s = (uint32_t)size[row + k];
+      c = (uint32_t)code[row + k];
+    };
+    bits[b] = sjpeg::emit_block((uint32_t)dc[b], dcl + 32 * set + 16 * g,
+                                acl + 512 * set + 256 * g, fields,
+                                words + row);
+  }
+}
 """
 
 
@@ -151,10 +171,11 @@ def host_core(tmp_path_factory):
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
                     f"-I{REPO / 'sjpeg_tpu_torch' / 'csrc'}", "-o", str(lib),
                     str(d / "core.cpp")], check=True)
-    fn = ctypes.CDLL(str(lib)).encode_blocks
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
-    fn.restype = None
-    return fn
+    so = ctypes.CDLL(str(lib))
+    so.encode_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
+    so.emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+    so.encode_blocks.restype = so.emit_blocks.restype = None
+    return so
 
 
 @pytest.mark.parametrize("q,lo,hi", [(75, -128, 129), (100, -128, 129),
@@ -180,9 +201,41 @@ def test_block_core_host_build_matches_plain(host_core, q, lo, hi):
     words = np.zeros((n, 64), np.uint32)
     bits = np.zeros(n, np.int32)
     host = [np.ascontiguousarray(x.numpy()) for x in t]
-    host_core(samples.ctypes.data, dc.ctypes.data, group.ctypes.data,
-              *(a.ctypes.data for a in host), words.ctypes.data,
-              bits.ctypes.data, n)
+    host_core.encode_blocks(samples.ctypes.data, dc.ctypes.data,
+                            group.ctypes.data,
+                            *(a.ctypes.data for a in host),
+                            words.ctypes.data, bits.ctypes.data, n)
+    np.testing.assert_array_equal(bits, want_b.numpy())
+    np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("n_sets", [1, 3])
+def test_emit_block_host_build_matches_vlc_pack_plain(host_core, n_sets):
+    """block_core.cuh's emit_block, the emission half that vlc_pack and
+    sample_pack share, == vlc_pack_plain on 3 x 700 random blocks (700 is
+    not a multiple of 128) with long zero runs, shared or per-image LUTs."""
+    n, per_img = 2100, 700
+    rng = np.random.RandomState(16)
+    q = rng.randint(-1500, 1501, (n, 64)) * (rng.rand(n, 64) < 0.2)
+    q[::5, 1:63] = 0                                  # one long run, ZRLs
+    q[1::5, 1:] = rng.randint(-2, 3, (len(q[1::5]), 63))        # dense
+    rl = engine.vlc.run_levels(torch.from_numpy(q), torch.int32)
+    dc = engine.vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-1023, 1024, n)), n // per_img)
+    group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32))
+    freq_dc, freq_ac = engine._grouped_stats(rl, dc, group, n // per_img)
+    dcl, acl, _, _ = engine.huffman_device.luts_and_desc_from_freqs(
+        freq_dc, freq_ac)
+    if n_sets == 1:
+        dcl, acl = dcl[0], acl[0]
+    fields = (rl["run"], rl["size"], rl["code"], dc, group)
+    want_w, want_b = engine.vlc_pack.vlc_pack_plain(*fields, dcl, acl)
+
+    words = np.zeros((n, 64), np.uint32)
+    bits = np.zeros(n, np.int32)
+    host = [np.ascontiguousarray(t.numpy()) for t in fields + (dcl, acl)]
+    host_core.emit_blocks(*(a.ctypes.data for a in host), words.ctypes.data,
+                          bits.ctypes.data, n, per_img, n_sets)
     np.testing.assert_array_equal(bits, want_b.numpy())
     np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
 
@@ -210,6 +263,7 @@ def test_port_imports_neither_jax_nor_sjpeg_tpu():
          yuv_mode=C.YUV_SHARP),
     dict(huffman_compress=False, adaptive_quantization=False,
          yuv_mode=C.YUV_420, passes=3),
+    dict(use_trellis=True, yuv_mode=C.YUV_420),        # method 7
 ])
 def test_unported_configurations_raise(kw):
     rgb = np.zeros((1, 16, 16, 3), np.uint8)
