@@ -15,7 +15,13 @@ against the plain PyTorch versions on the same card:
   through merge_codesizes, vlc_pack and stream_concat.  Phases: m4_parity,
   m4_path, m4_cases (methods 1 and 3, shared statistics, 4:4:4, 4:0:0,
   1000 x 750, NV12, overflow re-packs, GPU vs CPU path), m4_timing,
-  m4_breakdown.
+  m4_breakdown;
+- method 7 (method 4 with trellis quantization), through trellis,
+  merge_codesizes, vlc_pack and stream_concat.  Phases: tr_parity (the
+  trellis kernel with per-image and shared matrices and per-image rate
+  tables), tr_path, tr_cases (shared statistics, 4:4:4, 4:0:0,
+  1000 x 750, NV12, q40, q90, an overflow re-pack, GPU vs CPU path),
+  tr_timing, tr_breakdown.
 
 One JSON line each.  Then the `kernels` line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  Any failure raises and
@@ -79,6 +85,11 @@ def method0(mode: int, quality: float = QUALITY):
                         huffman_compress=False, adaptive_quantization=False)
 
 
+def method7(mode: int, quality: float = QUALITY):
+    from sjpeg_tpu_torch.params import EncoderParam
+    return EncoderParam(quality=quality, yuv_mode=mode, use_trellis=True)
+
+
 def method4(mode: int, quality: float = QUALITY, method: int = 4):
     """Method 4 (the default toggles), or 1 (no adaptive quantization) or
     3 (no Huffman optimization)."""
@@ -93,12 +104,14 @@ def plain_forced():
     """Patch the engine's kernel calls with the plain versions (this
     script only: the package itself never falls back)."""
     from sjpeg_tpu_torch.ops import (merge_codesizes, sample_pack,
-                                     stream_concat, vlc_pack)
+                                     stream_concat, trellis, vlc_pack)
     with mock.patch.multiple(
             "sjpeg_tpu_torch.engine",
             sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
             stream_concat=mock.Mock(
                 stream_concat=stream_concat.stream_concat_plain),
+            trellis=mock.Mock(
+                trellis_quantize=trellis.trellis_quantize_plain),
             vlc_pack=mock.Mock(vlc_pack=vlc_pack.vlc_pack_plain)), \
             mock.patch("sjpeg_tpu_torch.ops.huffman_device.merge_codesizes",
                        merge_codesizes.merge_codesizes_plain):
@@ -361,6 +374,8 @@ def main() -> int:
     del words, bits, pwords, pbits, out, pout, sinter, blocks, src
     torch.cuda.empty_cache()
     rows += method4_phases(card, rgb)
+    torch.cuda.empty_cache()
+    rows += trellis_phases(card, rgb)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -612,6 +627,220 @@ def method4_phases(card: str, rgb: np.ndarray) -> list:
                    launches["merge_codesizes"], max(err_merge), sum(mc_ms),
                    sum(mc_plain_ms), mc_bytes, mc_ops, dc_ac_ms=mc_ms,
                    serial_steps=[a[5] for a in merge_states])]
+
+
+def trellis_phases(card: str, rgb: np.ndarray) -> list:
+    """The method-7 path on the same batch: tr_parity, tr_path, tr_cases,
+    tr_timing and tr_breakdown; returns the trellis kernel row."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, kernels, pipeline, state
+    from sjpeg_tpu_torch.huffman import trellis_cost_lens
+    from sjpeg_tpu_torch.ops import (huffman_device, merge_codesizes,
+                                     sample_pack, stream_concat, trellis,
+                                     vlc_pack)
+    from sjpeg_tpu_torch.params import method_flags
+
+    dev = torch.device(DEVICE)
+    param = method7(C.YUV_420)
+    flags = method_flags(param.method)
+    need(param.method == 7 and flags["use_trellis"], "method 7 is trellis")
+    layout = pipeline.component_layout(C.YUV_420, WIDTH, HEIGHT)
+    nb = tuple(layout.nb_blocks)
+    bucket = engine._bucket(layout, WIDTH, HEIGHT, 4.0)
+
+    # ---- tr_parity: the path's own inputs, kernel vs plain --------------
+    src = torch.from_numpy(rgb).to(dev)
+    coeffs, histos = engine._stage_batch_coeffs(
+        src, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH)
+    per_qms, quant = engine._fit_quantizers(histos, param, 2, BATCH, False)
+    iq, ib = state.arrays_to_device(*quant, device=dev)
+    qq, lt = state.arrays_to_device(engine._clamped_quant(per_qms, False),
+                                    trellis_cost_lens(), device=dev)
+    cinter, group, dc = engine._stage_trellis_prep(coeffs, iq, ib, nb, BATCH)
+    del coeffs, src
+    n = cinter.shape[0]
+    levels = trellis.trellis_quantize(cinter, iq, ib, qq, group, lt, BATCH)
+    # per-image rate tables as a search pass would have them: the optimal
+    # AC code lengths of each image's own trellis statistics
+    _, freqs = engine._stage_trellis_post(levels, dc, group, True, BATCH)
+    _, acl, _, _ = engine._stage_tables(freqs, flags, 2, BATCH, False, dev)
+    lt_img = (acl & 0xFF).contiguous()
+    shared = state.arrays_to_device(*engine._quant_arrays(per_qms[0]),
+                                    engine._clamped_quant(per_qms, True),
+                                    device=dev)
+    variants = {"per_image_mats": (iq, ib, qq, lt),
+                "shared_mats": (*shared, lt),
+                "per_image_rates": (iq, ib, qq, lt_img)}
+    errs = {}
+    for name, (a, b, q, r) in variants.items():
+        got = trellis.trellis_quantize(cinter, a, b, q, group, r, BATCH)
+        want = trellis.trellis_quantize_plain(cinter, a, b, q, group, r,
+                                              BATCH)
+        torch.cuda.synchronize()
+        errs[name] = max_err([(got, want)])
+        del got, want
+    evaluations = trellis.search_evaluations(cinter, iq, ib, group, BATCH)
+    emit("tr_parity", blocks=n, max_abs_err=errs,
+         nonzero_ac_levels=int((levels[:, 1:] != 0).sum()),
+         evaluated_scores=evaluations)
+    need(all(e == 0 for e in errs.values()),
+         "trellis bit-exact against its plain version (every variant)")
+
+    # ---- tr_path --------------------------------------------------------
+    counted = {"trellis": trellis.trellis_quantize,
+               "vlc_pack": vlc_pack.vlc_pack,
+               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "stream_concat": stream_concat.stream_concat,
+               "sample_pack": sample_pack.sample_pack}
+    for fn in counted.values():
+        fn.launches = 0
+    jpegs = engine.encode_batch(rgb, param, device=dev)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    with plain_forced():
+        plain_jpegs = engine.encode_batch(rgb, param, device=dev)
+    same = jpegs == plain_jpegs
+    m4_bytes = sum(len(j) for j in engine.encode_batch(
+        rgb, method4(C.YUV_420), device=dev))
+    emit("tr_path", images=len(jpegs), launches=launches,
+         bytes_total=sum(len(j) for j in jpegs), method4_bytes_total=m4_bytes,
+         byte_equal_plain=same)
+    need(all(launches[k] > 0 for k in ("trellis", "merge_codesizes",
+                                       "vlc_pack", "stream_concat")),
+         "the method-7 path ran trellis, merge_codesizes, vlc_pack, "
+         "stream_concat")
+    need(same, "method-7 bytes equal the plain-forced path")
+    need(all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9" for j in jpegs),
+         "SOI/EOI markers")
+
+    # ---- tr_cases -------------------------------------------------------
+    cases = {}
+    for name, mode, (b, h, w), q, share, budget in [
+            ("shared_statistics", C.YUV_420, (4, 512, 512), 75, True, 4.0),
+            ("444", C.YUV_444, (4, 512, 512), 75, False, 4.0),
+            ("400", C.YUV_400, (4, 512, 512), 75, False, 4.0),
+            ("420_1000x750", C.YUV_420, (4, 750, 1000), 75, False, 4.0),
+            ("nv12", C.YUV_420, (4, 512, 512), 75, False, 4.0),
+            ("q40", C.YUV_420, (4, 512, 512), 40, False, 4.0),
+            ("q90", C.YUV_420, (4, 512, 512), 90, False, 4.0),
+            ("overflow", C.YUV_420, (2, 256, 256), 95, False, 0.0)]:
+        img = make_rgb(b, h, w, SEED + 200 + len(cases))
+        if name == "overflow":
+            img[0] = np.random.RandomState(SEED).randint(0, 256, (h, w, 3))
+        p = method7(mode, q)
+
+        def run():
+            if name == "nv12":
+                y = img[..., 0]
+                uv = np.stack([img[:, ::2, ::2, 1], img[:, ::2, ::2, 2]], -1)
+                return engine.encode_batch_nv12(y, uv, p, budget,
+                                                device=dev)
+            return engine.encode_batch(img, p, budget, share, device=dev)
+
+        with mock.patch.object(engine, "_repack_one",
+                               wraps=engine._repack_one) as spy:
+            got = run()
+        with plain_forced():
+            cases[name] = got == run()
+        if name == "overflow":
+            cases["overflow_repacked"] = spy.call_count >= 1
+    small = make_rgb(2, 40, 24, SEED)
+    for share in (False, True):
+        cases["gpu_equals_cpu" + ("_shared" if share else "")] = (
+            engine.encode_batch(small, param, share_statistics=share,
+                                device=dev)
+            == engine.encode_batch(small, param, share_statistics=share,
+                                   device="cpu"))
+    emit("tr_cases", **cases)
+    need(all(cases.values()), "every method-7 case byte-equal")
+
+    # ---- tr_timing ------------------------------------------------------
+    tr_fn = kernels.function("trellis", "sjpeg_trellis", trellis._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch_trellis(a, b, q, r, coeffs=cinter):
+        kernels.check(tr_fn(coeffs.data_ptr(), group.data_ptr(),
+                            a.data_ptr(), b.data_ptr(), q.data_ptr(),
+                            r.data_ptr(), levels.data_ptr(), n, n // BATCH,
+                            1 if a.dim() == 2 else BATCH,
+                            1 if r.dim() == 2 else BATCH, stream), "trellis")
+
+    tr_ms = {k: event_ms(lambda v=v: launch_trellis(*v), 20)
+             for k, v in variants.items()}
+    # all-zero blocks open no node: the kernel's cost without its search
+    zeros = torch.zeros_like(cinter)
+    tr_ms["zero_blocks"] = event_ms(lambda: launch_trellis(
+        *variants["per_image_mats"], coeffs=zeros), 20)
+    del zeros
+    tr_plain_ms = event_ms(lambda: trellis.trellis_quantize_plain(
+        cinter, iq, ib, qq, group, lt, BATCH), 3)
+    e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 5)
+    mpx = BATCH * HEIGHT * WIDTH / 1e6
+    emit("tr_timing", gpu=card, trellis_ms=tr_ms, trellis_plain_ms=tr_plain_ms,
+         encode_batch_ms=e2e_ms, encode_batch_mpx_per_s=mpx / (e2e_ms / 1e3),
+         megapixels=mpx)
+
+    # ---- tr_breakdown: one encode_batch, host clock, synchronised -------
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    s = stage("h2d", lambda: torch.from_numpy(rgb).to(dev))
+    co, hi = stage("colour_fdct_histograms", lambda: engine._stage_batch_coeffs(
+        s, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH))
+    qms, qa = stage("host_fit", lambda: engine._fit_quantizers(
+        hi, param, 2, BATCH, False))
+    i_, b_, q_, l_ = stage("upload_tables", lambda: state.arrays_to_device(
+        *qa, engine._clamped_quant(qms, False), trellis_cost_lens(),
+        device=dev))
+    ci, gr, dcc = stage("trellis_prep", lambda: engine._stage_trellis_prep(
+        co, i_, b_, nb, BATCH))
+    del co
+    lv = stage("trellis", lambda: trellis.trellis_quantize(
+        ci, i_, b_, q_, gr, l_, BATCH))
+    vs, fr = stage("trellis_post_stats", lambda: engine._stage_trellis_post(
+        lv, dcc, gr, True, BATCH))
+    huffman_device.optimal_code_luts.any_reads = 0
+    dl, al, _, desc = stage("tables", lambda: engine._stage_tables(
+        fr, flags, 2, BATCH, False, dev))
+    any_reads = huffman_device.optimal_code_luts.any_reads
+    w_, bb = stage("vlc_pack", lambda: vlc_pack.vlc_pack(
+        vs[0]["run"], vs[0]["size"], vs[0]["code"], vs[1], vs[2], dl, al))
+    o_, t_ = stage("stream_concat", lambda: stream_concat.stream_concat(
+        w_, bb, BATCH, bucket))
+
+    def fetch():
+        tn = t_.cpu().numpy()
+        return tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy()
+
+    tn, wn, flat = stage("fetch", fetch)
+    stage("host_tail", lambda: [engine._assemble_jpeg(
+        layout, param, qms[i], huffman_device.tables_from_flat(flat, i, 2),
+        engine._finalize_scan_bytes(wn[i], int(tn[i])))
+        for i in range(BATCH)])
+    emit("tr_breakdown", gpu=card, ms=stages, any_reads=any_reads,
+         fetched_words=int(wn.size))
+
+    # ---- kernel row -----------------------------------------------------
+    # each input read once (coefficients, groups, per-image matrices, rate
+    # table), the [N, 64] levels written once
+    tr_bytes = (4 * n * 64 + 4 * n + 4 * sum(t.numel() for t in (iq, ib, qq))
+                + 4 * lt.numel() + 4 * n * 64)
+    # 32-bit operations: ~15 per evaluated (candidate, predecessor) score
+    # (run, rate lookup, bits, multiply-add, compare, select), ~10 per
+    # position for the block's energy and bias-quantize pass
+    tr_ops = evaluations * 15 + n * 63 * 10
+    return [kernel_row("trellis", "sjpeg_tpu_torch/csrc/trellis.cu",
+                       "sjpeg_tpu/ops/pallas_trellis.py:319",
+                       launches["trellis"], max(errs.values()),
+                       tr_ms["per_image_mats"], tr_plain_ms, tr_bytes,
+                       tr_ops, variant_ms=tr_ms,
+                       evaluated_scores=evaluations)]
 
 
 if __name__ == "__main__":

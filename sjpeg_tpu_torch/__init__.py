@@ -1,9 +1,10 @@
 """sjpeg_tpu_torch: the PyTorch/CUDA port of the sjpeg-tpu encode engine.
 
-It runs the batched encode for methods 0, 1, 3 and 4 (fixed K.3 or
-optimal Huffman tables, with or without adaptive quantization, pinned
-4:2:0, 4:4:4 or 4:0:0) on an NVIDIA GPU through four hand-written CUDA
-kernels, and produces the same bytes as `sjpeg_tpu.engine.encode_batch`.
+It runs the batched encode for methods 0, 1, 3, 4 and 7 (fixed K.3 or
+optimal Huffman tables, with or without adaptive quantization, method 7
+with trellis quantization; pinned 4:2:0, 4:4:4 or 4:0:0) on an NVIDIA GPU
+through five hand-written CUDA kernels, and produces the same bytes as
+`sjpeg_tpu.engine.encode_batch`.
 Entry points live in `sjpeg_tpu_torch.engine`; each runs on "cuda" unless
 the caller passes device="cpu".
 """

@@ -10,15 +10,19 @@ Method 0 (K.3 tables, no adaptive quantization), fused:
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
   fetch, stuffing, markers                bitio, headers   [host]
 
-Methods 1, 3 and 4 (two-pass optimal Huffman and/or adaptive
-quantization; per-image statistics, or one set from the whole batch with
-share_statistics=True), staged as the JAX engine stages them off the
-relay (`_encode_batch_optimized`):
+Methods 1, 3, 4 and 7 (two-pass optimal Huffman and/or adaptive
+quantization, method 7 with trellis quantization; per-image statistics, or
+one set from the whole batch with share_statistics=True), staged as the
+JAX engine stages them off the relay (`_encode_batch_optimized`):
 
   colour + fDCT + coefficient histograms  _stage_batch_coeffs [torch]
   lambda fit per image and table group    adaptive.analyse_histo [host]
   quantize + MCU interleave + VLC fields
     + DC chain + symbol frequencies       _stage_batch_quantize [torch]
+  or, method 7:
+    MCU interleave + DC chain             _stage_trellis_prep [torch]
+    trellis quantization                  ops/trellis      [CUDA kernel 5]
+    VLC fields + symbol frequencies       _stage_trellis_post [torch]
   optimal tables: the merge loop          ops/merge_codesizes [CUDA kernel 4]
     and its torch tail                    ops/huffman_device
   Huffman lookup + per-block pack         ops/vlc_pack     [CUDA kernel 3]
@@ -44,9 +48,9 @@ from . import headers, pipeline, spec, state
 from .adaptive import analyse_histo
 from .bitio import words_to_scan
 from .huffman import (build_code_lut, k3_default_tables,
-                      optimal_tables_from_freqs)
+                      optimal_tables_from_freqs, trellis_cost_lens)
 from .ops import colorspace, fdct, huffman_device, pack, quantize, \
-    sample_pack, stream_concat, vlc, vlc_pack
+    sample_pack, stream_concat, trellis, vlc, vlc_pack
 from .params import EncoderParam, method_flags
 
 
@@ -60,11 +64,6 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_supported(param: EncoderParam, yuv_mode: int) -> None:
-    if method_flags(param.method)["use_trellis"]:
-        raise NotImplementedError(
-            f"trellis quantization (use_trellis, method {param.method}) is "
-            "not ported yet (ROADMAP A6); the port runs methods 0, 1, 3 "
-            "and 4")
     if param.passes > 1:
         raise NotImplementedError(
             "target-size / target-PSNR search (passes > 1) is not ported "
@@ -139,11 +138,11 @@ def encode_batch(rgbs, param: Optional[EncoderParam] = None,
                  bits_per_pixel_budget: float = 4.0,
                  share_statistics: bool = False, device=None):
     """Encode a uint8 batch [B, H, W, 3] (numpy or torch) with pinned
-    YUV_420, YUV_444 or YUV_400 and method 0, 1, 3 or 4.  Returns a list
+    YUV_420, YUV_444 or YUV_400 and method 0, 1, 3, 4 or 7.  Returns a list
     of complete JPEG byte strings, byte-identical to
     sjpeg_tpu.engine.encode_batch.
 
-    Methods 1, 3 and 4 optimize per image by default (per-image adaptive
+    Methods 1, 3, 4 and 7 optimize per image by default (per-image adaptive
     matrices and per-image optimal Huffman tables, as the reference
     does); share_statistics=True derives one table set / tuned matrix
     pair from the whole batch's statistics instead."""
@@ -292,7 +291,7 @@ def _host_fallback_one(src, src_kind: str, i: int, yuv_mode: int, w: int,
 
 
 # ---------------------------------------------------------------------------
-# Methods 1, 3 and 4: the staged optimized path
+# Methods 1, 3, 4 and 7: the staged optimized path
 # ---------------------------------------------------------------------------
 
 def _stage_batch_coeffs(src, src_kind: str, yuv_mode: int, width: int,
@@ -423,6 +422,69 @@ def _stage_batch_quantize(coeffs, iquant, ibias, with_stats: bool,
                                                  stats_images)
 
 
+def _clamped_quant(per_qms, shared: bool) -> np.ndarray:
+    """The clamped quant matrices the trellis's lambda and distortion read:
+    [2, 64] shared, or [B, 2, 64] per image."""
+    if shared:
+        return np.stack([per_qms[0][0]["quant"], per_qms[0][1]["quant"]])
+    return np.stack([[q["quant"] for q in qms] for qms in per_qms])
+
+
+def _stage_trellis_prep(coeffs, iquant, ibias, nb_blocks,
+                        n_images: int = 1):
+    """Interleave the coefficients into MCU order for the trellis, with
+    each block's DC diff code from the plain bias quantizer (the
+    trellis's own DC rule, src/enc.cc:763-766; the predictor resets per
+    image) and its table group.  iquant/ibias: [2, 64] shared or
+    [B, 2, 64] per image -> ([N, 64] int32, [N] int32 groups, [N] int32 DC
+    codes)."""
+    n_mcu = coeffs[0].shape[0] // nb_blocks[0]
+    cinter = torch.cat([co.reshape(n_mcu, nb, 64)
+                        for co, nb in zip(coeffs, nb_blocks)],
+                       dim=1).reshape(-1, 64)
+    dc_cols = []
+    for c, (co, nb) in enumerate(zip(coeffs, nb_blocks)):
+        g = 0 if c == 0 else 1
+        if iquant.dim() == 3:
+            dcq = quantize.quantize_values(co[:, 0].reshape(n_images, -1),
+                                           iquant[:, g, 0, None],
+                                           ibias[:, g, 0, None])
+        else:
+            dcq = quantize.quantize_values(co[:, 0], iquant[g, 0],
+                                           ibias[g, 0])
+        codes = vlc.dc_diff_codes(dcq.reshape(-1), n_images)
+        dc_cols.append(codes.reshape(n_mcu, nb))
+    dc_codes = torch.cat(dc_cols, dim=1).reshape(-1)
+    return cinter, _slot_groups(nb_blocks, n_mcu, cinter.device), dc_codes
+
+
+def _stage_trellis_post(qinter, dc_codes, group, with_stats: bool,
+                        stats_images: int):
+    """Trellis levels -> ((int32 VLC fields, DC codes, groups),
+    frequencies or None)."""
+    rl = vlc.run_levels(qinter, torch.int32)
+    if not with_stats:
+        return (rl, dc_codes, group), None
+    return (rl, dc_codes, group), _grouped_stats(rl, dc_codes, group,
+                                                 stats_images)
+
+
+def _stage_quantize_trellis(coeffs, iquant, ibias, quant, lt_lens,
+                            with_stats: bool, nb_blocks, n_images: int,
+                            stats_images: int):
+    """Trellis quantize + interleave + VLC fields (+ frequencies): the
+    method-7 counterpart of `_stage_batch_quantize` (src/enc.cc:692-761).
+    iquant/ibias/quant: [2, 64] shared or [B, 2, 64] per image; lt_lens:
+    [2, 256] or [B, 2, 256] AC code lengths, the rate model."""
+    cinter, group, dc_codes = _stage_trellis_prep(coeffs, iquant, ibias,
+                                                  nb_blocks, n_images)
+    qinter = trellis.trellis_quantize(cinter, iquant, ibias, quant, group,
+                                      lt_lens, n_images)
+    del cinter
+    return _stage_trellis_post(qinter, dc_codes, group, with_stats,
+                               stats_images)
+
+
 def _stage_tables(freqs, flags, n_groups: int, b: int,
                   share_statistics: bool, device):
     """Huffman LUTs for the pack -> (dc_luts, ac_luts, per-image host
@@ -481,7 +543,8 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
                             h: int, param: EncoderParam,
                             bits_per_pixel_budget: float,
                             share_statistics: bool = False):
-    """Batched two-pass Huffman / adaptive-quant encode (methods 1, 3, 4).
+    """Batched two-pass Huffman / adaptive-quant encode (methods 1, 3, 4;
+    7 adds trellis quantization with the K.3 rate model).
 
     Per-image by default: per-image adaptive matrices and per-image
     optimal Huffman tables, byte-identical to per-image encodes
@@ -508,8 +571,17 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
         per_qms = [_quant_matrices(param)] * b
         quant = _quant_arrays(per_qms[0])
     iq, ib = state.arrays_to_device(*quant, device=device)
-    vlc_state, freqs = _stage_batch_quantize(
-        coeffs, iq, ib, flags["optimize_size"], nb_blocks, b, stats_images)
+    if flags["use_trellis"]:          # methods 7 and 8 fit adaptively
+        qq, lt_lens = state.arrays_to_device(
+            _clamped_quant(per_qms, share_statistics), trellis_cost_lens(),
+            device=device)
+        vlc_state, freqs = _stage_quantize_trellis(
+            coeffs, iq, ib, qq, lt_lens, flags["optimize_size"], nb_blocks,
+            b, stats_images)
+    else:
+        vlc_state, freqs = _stage_batch_quantize(
+            coeffs, iq, ib, flags["optimize_size"], nb_blocks, b,
+            stats_images)
     del coeffs
     dc_luts, ac_luts, per_tables, desc_flat = _stage_tables(
         freqs, flags, n_groups, b, share_statistics, device)

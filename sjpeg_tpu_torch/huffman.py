@@ -15,6 +15,7 @@ Optimal-table semantics, as in the reference:
   reproduced here via the same (freq << 9 | index) packed sort keys.
 """
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -151,6 +152,18 @@ def build_optimal_table(freq: np.ndarray, size: int) -> HuffmanTable:
         syms=syms[:nb_syms],
         nb_syms=nb_syms,
     )
+
+
+@functools.lru_cache(maxsize=1)
+def trellis_cost_lens() -> np.ndarray:
+    """[2, 256] int32 K.3-default AC code lengths (luma, chroma): the
+    pre-optimization rate model the trellis uses on a single pass
+    (src/enc.cc:1528).  Read-only, cached."""
+    defaults = k3_default_tables()
+    lens = np.stack([build_code_lut(defaults[2], 256) & 0xFF,
+                     build_code_lut(defaults[3], 256) & 0xFF]).astype(np.int32)
+    lens.flags.writeable = False
+    return lens
 
 
 def optimal_tables_from_freqs(freq_dc: np.ndarray, freq_ac: np.ndarray,

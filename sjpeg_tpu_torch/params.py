@@ -3,7 +3,8 @@
 `EncoderParam` mirrors the capability surface of the reference's parameter
 object (src/sjpeg.h:187-275).  The compression "method" 0..8 is the same
 preset bundle of four booleans (src/enc.cc:199-207, sjpeg.h:77-99).  The
-port runs only method 0 so far; the engine rejects the others by name.
+port runs methods 0, 1, 3, 4 and 7; the engine rejects what it does not
+run (a search, AUTO and sharp YUV) by name.
 """
 
 import dataclasses

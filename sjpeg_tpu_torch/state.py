@@ -1,11 +1,13 @@
 """The encoder's state as the port's tensors.
 
-The encoder has no weights; its state is the quantizer rows and the Huffman
-LUTs, shared ([2, 64] rows, [2, 16] / [2, 256] LUTs) or one set per image
-([B, 2, 64], [B, 2, 16] / [B, 2, 256]).  `tables_from_numpy` carries them
-from NumPy (the JAX package's `engine._quant_device_arrays` /
-`engine._device_luts` arrays, or the port's own) onto a device, in the
-layout the kernels read; `arrays_to_device` carries any subset of them.
+The encoder has no weights; its state is the quantizer rows (iquant and
+bias, and for the trellis the clamped quant matrix), the Huffman LUTs and
+the trellis's AC code lengths, shared ([2, 64] rows, [2, 16] / [2, 256]
+LUTs and lengths) or one set per image ([B, 2, 64], [B, 2, 16] /
+[B, 2, 256]).  `tables_from_numpy` carries them from NumPy (the JAX
+package's `engine._quant_device_arrays` / `engine._device_luts` arrays,
+or the port's own) onto a device, in the layout the kernels read;
+`arrays_to_device` carries any subset of them.
 """
 
 import numpy as np

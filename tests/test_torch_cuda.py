@@ -14,10 +14,10 @@ import torch
 
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, state
-from sjpeg_tpu_torch.huffman import k3_default_tables
+from sjpeg_tpu_torch.huffman import k3_default_tables, trellis_cost_lens
 from sjpeg_tpu_torch.ops import (colorspace, huffman_device,
                                  merge_codesizes, sample_pack, stream_concat,
-                                 vlc, vlc_pack)
+                                 trellis, vlc, vlc_pack)
 from sjpeg_tpu_torch.params import EncoderParam
 
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
@@ -157,6 +157,63 @@ def test_method4_gpu_matches_cpu(share):
     rgb = np.random.RandomState(19).randint(0, 256, (2, 40, 24, 3)).astype(
         np.uint8)
     param = EncoderParam(yuv_mode=C.YUV_420)
+    assert (engine.encode_batch(rgb, param, share_statistics=share)
+            == engine.encode_batch(rgb, param, share_statistics=share,
+                                   device="cpu"))
+
+
+def _trellis_inputs(n_images, per_img, per_image_mats, per_image_rates,
+                    seed):
+    """trellis_quantize's arguments, int32 on the card: coefficients
+    with full-range, flat and zero rows; matrices ([2, 64] or [B, 2, 64],
+    qualities 30/75/100 in turn); groups; rate tables ([2, 256] K.3 or
+    [B, 2, 256] variants)."""
+    n = n_images * per_img
+    rng = np.random.RandomState(seed)
+    c = rng.randint(-40, 40, (n, 64)) * rng.choice([0, 1, 1, 1, 16, 64],
+                                                   (n, 64))
+    k = n // 8
+    c[:k] = rng.randint(-16384, 16385, (k, 64))
+    c[k:2 * k] = rng.choice([8, 40, 160], (k, 1))
+    c[2 * k:3 * k] = 0
+    group = (np.arange(n) % 6 >= 4).astype(np.int32)
+    quals = [(30, 75, 100)[i % 3] for i in range(n_images)]
+    per_qms = [engine._quant_matrices(EncoderParam(quality=q))
+               for q in (quals if per_image_mats else [75])]
+    mats = [np.stack([[qms[g][key] for g in range(2)] for qms in per_qms])
+            for key in ("iquant", "bias", "quant")]
+    if not per_image_mats:
+        mats = [m[0] for m in mats]
+    lens = np.array(trellis_cost_lens())
+    if per_image_rates:
+        lens = np.stack([(lens, lens[::-1], np.minimum(lens + 1, 16))[i % 3]
+                         for i in range(n_images)])
+    return state.arrays_to_device(c, *mats, group, lens, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_images,per_img", [(3, 700), (8, 48), (2, 1024)])
+@pytest.mark.parametrize("sets", ["shared", "mats", "rates", "both"])
+def test_trellis_matches_plain_on_gpu(n_images, per_img, sets):
+    """trellis_quantize == trellis_quantize_plain with shared or per-image
+    matrices and rate tables, where a CTA's 128 rows straddle two images
+    (700), many images (48), or none (1024)."""
+    _need_cuda()
+    args = _trellis_inputs(n_images, per_img, sets in ("mats", "both"),
+                           sets in ("rates", "both"), 20)
+    got = trellis.trellis_quantize(*args, n_images=n_images)
+    want = trellis.trellis_quantize_plain(*args, n_images=n_images)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [False, True])
+def test_method7_gpu_matches_cpu(share):
+    """Method 7 (trellis) on the card == the CPU path's bytes."""
+    _need_cuda()
+    rgb = np.random.RandomState(21).randint(0, 256, (2, 40, 24, 3)).astype(
+        np.uint8)
+    param = EncoderParam(yuv_mode=C.YUV_420, use_trellis=True)
     assert (engine.encode_batch(rgb, param, share_statistics=share)
             == engine.encode_batch(rgb, param, share_statistics=share,
                                    device="cpu"))

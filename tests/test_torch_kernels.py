@@ -263,7 +263,7 @@ def test_port_imports_neither_jax_nor_sjpeg_tpu():
          yuv_mode=C.YUV_SHARP),
     dict(huffman_compress=False, adaptive_quantization=False,
          yuv_mode=C.YUV_420, passes=3),
-    dict(use_trellis=True, yuv_mode=C.YUV_420),        # method 7
+    dict(use_trellis=True, passes=3, yuv_mode=C.YUV_420),   # method 7
 ])
 def test_unported_configurations_raise(kw):
     rgb = np.zeros((1, 16, 16, 3), np.uint8)
