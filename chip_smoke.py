@@ -21,7 +21,14 @@ against the plain PyTorch versions on the same card:
   trellis kernel with per-image and shared matrices and per-image rate
   tables), tr_path, tr_cases (shared statistics, 4:4:4, 4:0:0,
   1000 x 750, NV12, q40, q90, an overflow re-pack, GPU vs CPU path),
-  tr_timing, tr_breakdown.
+  tr_timing, tr_breakdown;
+- the batched target-size search (method 4, set_target_size(200_000,
+  passes=8)), through sample_pack with per-image tables, stream_concat
+  and merge_codesizes once a pass.  Phases: search_parity (the per-image
+  kernel at 16 x 1024^2, 1000 x 750 and images under 128 blocks),
+  search_path (launches, bytes vs the plain-forced path, sizes against the
+  target), search_cases (PSNR, passes=10, methods 0, 1 and 7, gray, NV12,
+  a bucket overflow, GPU vs CPU path), search_timing, search_breakdown.
 
 One JSON line each.  Then the `kernels` line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  Any failure raises and
@@ -105,14 +112,16 @@ def plain_forced():
     script only: the package itself never falls back)."""
     from sjpeg_tpu_torch.ops import (merge_codesizes, sample_pack,
                                      stream_concat, trellis, vlc_pack)
+    packs = dict(
+        sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
+        stream_concat=mock.Mock(
+            stream_concat=stream_concat.stream_concat_plain))
     with mock.patch.multiple(
-            "sjpeg_tpu_torch.engine",
-            sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
-            stream_concat=mock.Mock(
-                stream_concat=stream_concat.stream_concat_plain),
+            "sjpeg_tpu_torch.engine", **packs,
             trellis=mock.Mock(
                 trellis_quantize=trellis.trellis_quantize_plain),
             vlc_pack=mock.Mock(vlc_pack=vlc_pack.vlc_pack_plain)), \
+            mock.patch.multiple("sjpeg_tpu_torch.engine_search", **packs), \
             mock.patch("sjpeg_tpu_torch.ops.huffman_device.merge_codesizes",
                        merge_codesizes.merge_codesizes_plain):
         yield
@@ -300,8 +309,8 @@ def main() -> int:
         kernels.check(sp_fn(sinter.data_ptr(), sinter.element_size(),
                             dc.data_ptr(), group.data_ptr(),
                             *(t.data_ptr() for t in tables),
-                            words.data_ptr(), bits.data_ptr(), n, stream),
-                      "sample_pack")
+                            words.data_ptr(), bits.data_ptr(), n, n, 1,
+                            stream), "sample_pack")
 
     def launch_stream_concat():
         kernels.check(sc_fn(words.data_ptr(), bits.data_ptr(),
@@ -376,6 +385,10 @@ def main() -> int:
     rows += method4_phases(card, rgb)
     torch.cuda.empty_cache()
     rows += trellis_phases(card, rgb)
+    torch.cuda.empty_cache()
+    search_row, rate_launches = search_phases(card, rgb)
+    rows[-1]["search_per_image_rate_launches"] = rate_launches
+    rows.append(search_row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -841,6 +854,253 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
                        tr_ms["per_image_mats"], tr_plain_ms, tr_bytes,
                        tr_ops, variant_ms=tr_ms,
                        evaluated_scores=evaluations)]
+
+
+def search_inputs(img: np.ndarray, mode: int, quals) -> tuple:
+    """sample_pack's per-image arguments for a batch on the card, as a
+    size-search pass builds them: int16 samples, each image's own
+    quantizers (quality quals[i]) and its own optimal tables."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, engine_search, pipeline
+    from sjpeg_tpu_torch.ops import huffman_device
+    from sjpeg_tpu_torch.params import quant_matrices_for_quality
+
+    b, h, w = img.shape[:3]
+    nb = tuple(pipeline.component_layout(mode, w, h).nb_blocks)
+    prep = engine_search._stage_search_prep(
+        torch.from_numpy(img).to(DEVICE), "rgb", mode, w, h, nb, b, False,
+        True)
+    qn = torch.from_numpy(np.stack([quant_matrices_for_quality(q)
+                                    for q in quals]).astype(np.int32))
+    iq3, ib3 = engine_search._derive_quant_arrays(qn.to(DEVICE),
+                                                  C.DEFAULT_BIAS)
+    freqs = engine_search._search_component_freqs(prep["coeffs"], iq3, ib3,
+                                                  b)
+    dcl, acl, _, _ = huffman_device.luts_and_desc_from_freqs(
+        *freqs, 2 if len(nb) > 1 else 1)
+    dc = engine._dc_codes(prep["coeffs"], iq3, ib3, nb, b)
+    return prep["sinter"], dc, prep["group"], iq3, ib3, dcl, acl
+
+
+def search_phases(card: str, rgb: np.ndarray):
+    """The batched target-size search on the same batch: search_parity,
+    search_path, search_cases, search_timing and search_breakdown; returns
+    the per-image sample_pack row and the trellis's [B, 2, 256]
+    rate-table launches in the method-7 search."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, engine_search, kernels
+    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quantize,
+                                     sample_pack, stream_concat, trellis,
+                                     vlc_pack)
+
+    dev = torch.device(DEVICE)
+    target, passes = 200_000, 8
+    param = method4(C.YUV_420).set_target_size(target, passes=passes)
+
+    # ---- search_parity: the per-image kernel vs its plain version -------
+    quals = [40 + 3 * i for i in range(BATCH)]        # 16 distinct sets
+    args = search_inputs(rgb, C.YUV_420, quals)
+    n = args[0].shape[0]
+    words, bits = sample_pack.sample_pack(*args)
+    pwords, pbits = sample_pack.sample_pack_plain(*args)
+    torch.cuda.synchronize()
+    errs = {"16x1024x1024": max_err([(words, pwords), (bits, pbits)])}
+    del pwords
+    for name, (b, h, w) in [("4x1000x750", (4, 750, 1000)),
+                            ("24x40x24", (24, 24, 40))]:
+        small_args = search_inputs(make_rgb(b, h, w, SEED + 300 + b),
+                                   C.YUV_420, [30 + 5 * i for i in range(b)])
+        errs[name] = max_err([(x, y) for x, y in zip(
+            sample_pack.sample_pack(*small_args),
+            sample_pack.sample_pack_plain(*small_args))])
+        errs[name + "_blocks_per_image"] = small_args[0].shape[0] // b
+    emit("search_parity", blocks=n, sets=BATCH, max_abs_err=errs,
+         total_bits=int(bits.long().sum()))
+    need(all(v == 0 for k, v in errs.items() if "blocks" not in k),
+         "per-image sample_pack bit-exact against its plain version")
+
+    # ---- search_path ----------------------------------------------------
+    counted = {"sample_pack": sample_pack.sample_pack,
+               "stream_concat": stream_concat.stream_concat,
+               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "vlc_pack": vlc_pack.vlc_pack,
+               "trellis": trellis.trellis_quantize}
+    runs = []
+    loop_fn = engine_search._stage_search_loop_size
+
+    def spy_loop(*a, **k):
+        out = loop_fn(*a, **k)
+        runs.append(out[-1])
+        return out
+
+    for fn in counted.values():
+        fn.launches = 0
+    sample_pack.sample_pack.per_image_launches = 0
+    with mock.patch.object(engine_search, "_stage_search_loop_size",
+                           spy_loop):
+        jpegs = engine.encode_batch(rgb, param, device=dev)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    per_image = sample_pack.sample_pack.per_image_launches
+    with plain_forced():
+        plain_jpegs = engine.encode_batch(rgb, param, device=dev)
+    same = jpegs == plain_jpegs
+    sizes = [len(j) for j in jpegs]
+    within = [abs(s - target) < target / 100 for s in sizes]
+    emit("search_path", images=len(jpegs), target_bytes=target,
+         passes=passes, passes_run=runs, launches=launches,
+         sample_pack_per_image_launches=per_image, sizes=sizes,
+         within_tolerance=sum(within), byte_equal_plain=same)
+    need(len(runs) == 1 and per_image == runs[0] == launches["sample_pack"],
+         "one per-image sample_pack launch per executed pass")
+    need(launches["stream_concat"] == runs[0]
+         and launches["merge_codesizes"] == 2 * runs[0],
+         "stream_concat once and merge_codesizes twice a pass")
+    need(same, "search bytes equal the plain-forced path")
+    need(all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9" for j in jpegs),
+         "SOI/EOI markers")
+    need(all(abs(s - target) < 0.25 * target for s in sizes),
+         "every image within 25% of the target")
+
+    # ---- search_cases ---------------------------------------------------
+    cases, sizes_by_case = {}, {}
+    rate_launches = 0
+    for name, mode, (b, h, w), kw, budget in [
+            ("psnr35", C.YUV_420, (4, 512, 512),
+             dict(psnr=35.0, passes=8), 4.0),
+            ("size_passes10", C.YUV_420, (4, 512, 512),
+             dict(size=50_000, passes=10), 4.0),
+            ("method0", C.YUV_420, (4, 512, 512),
+             dict(size=50_000, passes=8, method=0), 4.0),
+            ("method1", C.YUV_420, (4, 512, 512),
+             dict(size=50_000, passes=8, method=1), 4.0),
+            ("method7", C.YUV_420, (4, 512, 512),
+             dict(size=50_000, passes=6, method=7), 4.0),
+            ("gray", C.YUV_400, (4, 512, 512),
+             dict(size=30_000, passes=6), 4.0),
+            ("nv12", C.YUV_420, (4, 512, 512),
+             dict(size=50_000, passes=6), 4.0),
+            ("overflow", C.YUV_420, (2, 256, 256),
+             dict(size=4000, passes=3, method=0, quality=90), 0.0001)]:
+        img = make_rgb(b, h, w, SEED + 400 + len(cases))
+        if name == "overflow":
+            img[0] = np.random.RandomState(SEED).randint(0, 256, (h, w, 3))
+        method, q = kw.get("method", 4), kw.get("quality", QUALITY)
+        p = (method7(mode, q) if method == 7 else
+             method0(mode, q) if method == 0 else method4(mode, q, method))
+        if "psnr" in kw:
+            p.set_target_psnr(kw["psnr"], passes=kw["passes"])
+        else:
+            p.set_target_size(kw["size"], passes=kw["passes"])
+
+        def run():
+            if name == "gray":
+                return engine.encode_batch_gray(img[..., 0], p, budget,
+                                                device=dev)
+            if name == "nv12":
+                y = img[..., 0]
+                uv = np.stack([img[:, ::2, ::2, 1], img[:, ::2, ::2, 2]], -1)
+                return engine.encode_batch_nv12(y, uv, p, budget, device=dev)
+            return engine.encode_batch(img, p, budget, device=dev)
+
+        trellis.trellis_quantize.per_image_rate_launches = 0
+        with mock.patch.object(engine_search._Search, "fallback",
+                               autospec=True,
+                               side_effect=engine_search._Search.fallback) \
+                as spy:
+            got = run()
+        if name == "method7":
+            rate_launches = trellis.trellis_quantize.per_image_rate_launches
+            cases["method7_used_rate_tables"] = rate_launches > 0
+        with plain_forced():
+            cases[name] = got == run()
+        sizes_by_case[name] = [len(j) for j in got]
+        if name == "overflow":
+            cases["overflow_fell_back"] = spy.call_count >= 1
+    small = make_rgb(2, 48, 64, SEED)
+    for name, p in [
+            ("gpu_equals_cpu_size",
+             method4(C.YUV_420).set_target_size(2000, passes=8)),
+            ("gpu_equals_cpu_psnr",
+             method4(C.YUV_420).set_target_psnr(35.0, passes=8))]:
+        cases[name] = (engine.encode_batch(small, p, device=dev)
+                       == engine.encode_batch(small, p, device="cpu"))
+    emit("search_cases", gpu=card, sizes=sizes_by_case,
+         method7_rate_table_launches=rate_launches, **cases)
+    need(all(cases.values()), "every search case byte-equal and checked")
+
+    # ---- search_timing --------------------------------------------------
+    sp_fn = kernels.function("sample_pack", "sjpeg_sample_pack",
+                             sample_pack._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    sinter, dc, group, iq3, ib3, dcl, acl = args
+
+    def launch(tables, n_sets):
+        kernels.check(sp_fn(sinter.data_ptr(), sinter.element_size(),
+                            dc.data_ptr(), group.data_ptr(),
+                            *(t.data_ptr() for t in tables),
+                            words.data_ptr(), bits.data_ptr(), n,
+                            n // n_sets, n_sets, stream), "sample_pack")
+
+    per_image_ms = event_ms(lambda: launch((iq3, ib3, dcl, acl), BATCH), 20)
+    shared_ms = event_ms(lambda: launch((iq3[0], ib3[0], dcl[0], acl[0]), 1),
+                         20)
+    plain_ms = event_ms(lambda: sample_pack.sample_pack_plain(*args), 3)
+    host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 1)  # warm-up
+    e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 3)
+    mpx = BATCH * HEIGHT * WIDTH / 1e6
+    emit("search_timing", gpu=card, sample_pack_per_image_ms=per_image_ms,
+         sample_pack_shared_ms=shared_ms, sample_pack_plain_ms=plain_ms,
+         encode_batch_ms=e2e_ms, encode_batch_mpx_per_s=mpx / (e2e_ms / 1e3),
+         megapixels=mpx, passes_run=runs[0])
+
+    # ---- search_breakdown: one search, host clock, synchronised ---------
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    src = stage("h2d", lambda: torch.from_numpy(rgb).to(dev))
+    srch = engine_search._Search(src, "rgb", C.YUV_420, WIDTH, HEIGHT, param,
+                                 4.0)
+    stage("prep", srch.stage_prep)
+    nodes = stage("node_fit", srch.node_matrices)
+    loop, thr = stage("loop", lambda: srch.size_loop(nodes))
+    combo = stage("trace_fetch", lambda: srch.fetch_size_trace(loop))
+    best_pass, opt = stage("replay", lambda: srch.replay_size(nodes, combo,
+                                                              thr))
+    picked = stage("pick_fetch", lambda: srch.pick_streams(loop, combo,
+                                                           best_pass))
+    out = stage("host_tail", lambda: srch.size_tail(opt, *picked))
+    emit("search_breakdown", gpu=card, ms=stages, passes_run=loop[-1],
+         distinct_node_matrices=int(np.unique(
+             nodes[0].reshape(-1, 128), axis=0).shape[0]),
+         fetched_words=int(picked[0].size))
+    need(out == jpegs, "the staged search gives the same bytes")
+
+    # ---- kernel row -----------------------------------------------------
+    tab = (torch.arange(n, device=dev) // (n // BATCH)) * 2 + group.long()
+    ac_nonzero = int((quantize.quantize_values(
+        fdct.fdct_blocks(sinter), iq3.reshape(-1, 64).long()[tab],
+        ib3.reshape(-1, 64).long()[tab])[:, 1:] != 0).sum())
+    tables = (iq3, ib3, dcl, acl)
+    # bytes: each input read once (samples, codes, groups, 16 table sets),
+    # each output written once; operations as the shared-table row's
+    sp_bytes = (n * 64 * sinter.element_size() + 8 * n
+                + 4 * sum(t.numel() for t in tables) + n * 64 * 4 + 4 * n)
+    sp_ops = n * (1250 + 63 * 7) + ac_nonzero * 20
+    row = kernel_row("sample_pack_per_image",
+                     "sjpeg_tpu_torch/csrc/sample_pack.cu",
+                     "sjpeg_tpu/ops/pallas_quant_pack.py:432",
+                     per_image, max(v for k, v in errs.items()
+                                    if "blocks" not in k),
+                     per_image_ms, plain_ms, sp_bytes, sp_ops,
+                     shared_tables_ms=shared_ms)
+    return row, rate_launches
 
 
 if __name__ == "__main__":

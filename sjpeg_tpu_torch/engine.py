@@ -29,6 +29,10 @@ JAX engine stages them off the relay (`_encode_batch_optimized`):
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
   fetch, stuffing, markers                bitio, headers   [host]
 
+With passes > 1 and a target size or PSNR, every method runs the batched
+search of engine_search, which packs its passes through sample_pack with
+per-image tables (or, pass by pass, through the staged path above).
+
 Every entry point takes `device`: None means "cuda", and it raises when
 CUDA is missing.  With device="cpu" the kernels' plain PyTorch versions
 run instead, which is how the tests hold the port against the JAX package.
@@ -51,7 +55,7 @@ from .huffman import (build_code_lut, k3_default_tables,
                       optimal_tables_from_freqs, trellis_cost_lens)
 from .ops import colorspace, fdct, huffman_device, pack, quantize, \
     sample_pack, stream_concat, trellis, vlc, vlc_pack
-from .params import EncoderParam, method_flags
+from .params import TARGET_NONE, EncoderParam, method_flags
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,11 +67,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _is_search(param: EncoderParam) -> bool:
+    """A target-size / target-PSNR search runs when passes > 1 and a target
+    is set; passes > 1 alone encodes once, as the JAX engine does."""
+    return param.passes > 1 and param.target_mode != TARGET_NONE
+
+
 def _check_supported(param: EncoderParam, yuv_mode: int) -> None:
-    if param.passes > 1:
+    if _is_search(param) and param.search_hook is not None:
         raise NotImplementedError(
-            "target-size / target-PSNR search (passes > 1) is not ported "
-            "yet (ROADMAP A7)")
+            "a custom search_hook runs the single-image search per image, "
+            "which is not ported yet (ROADMAP A4)")
     if yuv_mode in (C.YUV_AUTO, C.YUV_SHARP):
         raise NotImplementedError(
             "YUV_AUTO and YUV_SHARP are not ported yet (ROADMAP A8); pin "
@@ -145,7 +155,9 @@ def encode_batch(rgbs, param: Optional[EncoderParam] = None,
     Methods 1, 3, 4 and 7 optimize per image by default (per-image adaptive
     matrices and per-image optimal Huffman tables, as the reference
     does); share_statistics=True derives one table set / tuned matrix
-    pair from the whole batch's statistics instead."""
+    pair from the whole batch's statistics instead.  With passes > 1 and
+    set_target_size / set_target_psnr, each image runs its own search
+    (share_statistics does not apply)."""
     param = param or EncoderParam()
     dev = resolve_device(device)
     h, w = rgbs.shape[1:3]
@@ -233,6 +245,10 @@ def _encode_batch_src(src, src_kind: str, yuv_mode: int, w: int, h: int,
     if not (0 < w <= C.MAX_DIMENSION and 0 < h <= C.MAX_DIMENSION):
         raise ValueError(f"image size {w} x {h} is outside 1..."
                          f"{C.MAX_DIMENSION}")
+    if _is_search(param):              # share_statistics does not apply
+        from .engine_search import encode_batch_search
+        return encode_batch_search(src, src_kind, yuv_mode, w, h, param,
+                                   bits_per_pixel_budget)
     flags = method_flags(param.method)
     if flags["use_adaptive_quant"] or flags["optimize_size"]:
         return _encode_batch_optimized(src, src_kind, yuv_mode, w, h, param,
@@ -305,15 +321,20 @@ def _stage_batch_coeffs(src, src_kind: str, yuv_mode: int, width: int,
     else:
         blocks = colorspace.rgb_to_blocks(src, yuv_mode, width, height)
     coeffs = [fdct.fdct_blocks(b) for b in blocks]
-    if not with_histo:
-        return coeffs, None
+    return coeffs, _coeff_histos(coeffs, n_images) if with_histo else None
+
+
+def _coeff_histos(coeffs, n_images: int):
+    """(luma, chroma) |c| >> HSHIFT histograms of per-component
+    coefficients: [B, 64, bins] per image when n_images > 1, else [64,
+    bins]; chroma sums U and V and is zero for gray."""
     histo_l = quantize.store_histo(coeffs[0], n_images)
     if len(coeffs) > 1:
         histo_c = (quantize.store_histo(coeffs[1], n_images)
                    + quantize.store_histo(coeffs[2], n_images))
     else:
         histo_c = torch.zeros_like(histo_l)
-    return coeffs, (histo_l, histo_c)
+    return histo_l, histo_c
 
 
 def _fit_quantizers(histos, param: EncoderParam, n_groups: int, b: int,
@@ -323,19 +344,10 @@ def _fit_quantizers(histos, param: EncoderParam, n_groups: int, b: int,
     matrices [B][2], iquant and bias rows: [2, 64] shared or [B, 2, 64]
     per image)."""
     base_qms = _quant_matrices(param)
-    min_qmats = param.resolved_min_quant_matrices()
     hh = torch.stack(histos).cpu().numpy().astype(np.int64)
 
     def tune(histo_pair):
-        qms = list(base_qms)
-        for g in range(n_groups - 1, -1, -1):
-            qdelta_max = (param.qdelta_max_luma if g == 0
-                          else param.qdelta_max_chroma)
-            tuned = analyse_histo(histo_pair[g], qms[g]["quant"],
-                                  min_qmats[g], qdelta_max)
-            qms[g] = spec.finalize_quant_matrix(tuned, min_qmats[g],
-                                                param.quantization_bias)
-        return qms
+        return _tuned_qms(base_qms, histo_pair, param, n_groups)
 
     if share_statistics:
         qms = tune(hh.reshape(2, 64, -1))
@@ -346,6 +358,22 @@ def _fit_quantizers(histos, param: EncoderParam, n_groups: int, b: int,
         per_qms = list(pool.map(lambda i: tune(hh[:, i]), range(b)))
     arrays = [_quant_arrays(qms) for qms in per_qms]
     return per_qms, tuple(np.stack(a) for a in zip(*arrays))
+
+
+def _tuned_qms(qms, histo_pair, param: EncoderParam, n_groups: int):
+    """Finalized (luma, chroma) matrices -> the same after the host lambda
+    fit of each table group, chroma first as the reference runs it, over
+    the group's [64, bins] histogram."""
+    min_qmats = param.resolved_min_quant_matrices()
+    qms = list(qms)
+    for g in range(n_groups - 1, -1, -1):
+        qdelta_max = (param.qdelta_max_luma if g == 0
+                      else param.qdelta_max_chroma)
+        tuned = analyse_histo(histo_pair[g], qms[g]["quant"], min_qmats[g],
+                              qdelta_max)
+        qms[g] = spec.finalize_quant_matrix(tuned, min_qmats[g],
+                                            param.quantization_bias)
+    return qms
 
 
 def _interleave_quantized(coeffs, iquant, ibias, nb_blocks,
@@ -442,6 +470,16 @@ def _stage_trellis_prep(coeffs, iquant, ibias, nb_blocks,
     cinter = torch.cat([co.reshape(n_mcu, nb, 64)
                         for co, nb in zip(coeffs, nb_blocks)],
                        dim=1).reshape(-1, 64)
+    return (cinter, _slot_groups(nb_blocks, n_mcu, cinter.device),
+            _dc_codes(coeffs, iquant, ibias, nb_blocks, n_images))
+
+
+def _dc_codes(coeffs, iquant, ibias, nb_blocks, n_images: int = 1):
+    """MCU-interleaved [N] int32 DC diff codes of per-component
+    coefficients under the plain bias quantizer (src/enc.cc:482-499; the
+    predictor resets per image).  iquant/ibias: [2, 64] shared or
+    [B, 2, 64] per image."""
+    n_mcu = coeffs[0].shape[0] // nb_blocks[0]
     dc_cols = []
     for c, (co, nb) in enumerate(zip(coeffs, nb_blocks)):
         g = 0 if c == 0 else 1
@@ -454,8 +492,7 @@ def _stage_trellis_prep(coeffs, iquant, ibias, nb_blocks,
                                            ibias[g, 0])
         codes = vlc.dc_diff_codes(dcq.reshape(-1), n_images)
         dc_cols.append(codes.reshape(n_mcu, nb))
-    dc_codes = torch.cat(dc_cols, dim=1).reshape(-1)
-    return cinter, _slot_groups(nb_blocks, n_mcu, cinter.device), dc_codes
+    return torch.cat(dc_cols, dim=1).reshape(-1)
 
 
 def _stage_trellis_post(qinter, dc_codes, group, with_stats: bool,

@@ -1,5 +1,6 @@
 """Bias quantizer with the 16-bit reciprocal multiply (src/enc.cc:510-548),
-and the coefficient histograms of adaptive quantization.
+the quantization error of the PSNR search, and the coefficient histograms
+of adaptive quantization.
 
 |c| + bias is multiplied by the reciprocal as a uint32 product (carried in
 int64 and masked to 32 bits), shifted down by FP_BITS, then by AC_BITS, and
@@ -37,6 +38,18 @@ def per_image_quantize(coeffs: torch.Tensor, iquant: torch.Tensor,
     q = quantize_values(c3, iquant.to(torch.int64)[:, None, :],
                         bias.to(torch.int64)[:, None, :])
     return q.reshape(-1, 64).to(torch.int32)
+
+
+def quantize_error(coeffs: torch.Tensor, iquant, bias,
+                   quant) -> torch.Tensor:
+    """Per-block sum of squared reconstruction error in (|c| >> AC_BITS)
+    units (reference src/enc.cc:851-863): [..., 64] coefficients with
+    broadcastable iquant/bias/quant rows -> [...] int64.  A block's sum is
+    below 64 x 2^22 and int64 holds any batch's total exactly, where the
+    JAX package carries a (hi, lo) uint32 pair."""
+    c = coeffs.to(torch.int64).abs()
+    err = (c >> C.AC_BITS) - quant * quantize_values(c, iquant, bias)
+    return (err * err).sum(dim=-1)
 
 
 def store_histo(coeffs: torch.Tensor, n_images: int = 1) -> torch.Tensor:

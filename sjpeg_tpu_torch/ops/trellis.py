@@ -237,7 +237,10 @@ def trellis_quantize(cinter, iquant, ibias, quant, group, lt_lens,
                 torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "trellis")
     trellis_quantize.launches += 1
+    if lt_sets > 1:
+        trellis_quantize.per_image_rate_launches += 1
     return out
 
 
 trellis_quantize.launches = 0
+trellis_quantize.per_image_rate_launches = 0

@@ -3,8 +3,9 @@
 `EncoderParam` mirrors the capability surface of the reference's parameter
 object (src/sjpeg.h:187-275).  The compression "method" 0..8 is the same
 preset bundle of four booleans (src/enc.cc:199-207, sjpeg.h:77-99).  The
-port runs methods 0, 1, 3, 4 and 7; the engine rejects what it does not
-run (a search, AUTO and sharp YUV) by name.
+port runs methods 0, 1, 3, 4 and 7 and the batched target-size /
+target-PSNR search with the default hook; the engine rejects what it does
+not run (a custom search hook, AUTO and sharp YUV) by name.
 """
 
 import dataclasses
@@ -52,6 +53,44 @@ def method_flags(method: int) -> dict:
     }
 
 
+class SearchHook:
+    """Pluggable convergence control for target-size / target-PSNR search.
+
+    Default implementation: bisection on the quality factor between qmin and
+    qmax (reference src/dichotomy.cc:34-74).
+    """
+
+    def setup(self, param: "EncoderParam", initial_q: float) -> bool:
+        """`initial_q` is the estimated quality of the starting matrices."""
+        self.for_size = param.target_mode == TARGET_SIZE
+        self.target = param.target_value
+        self.tolerance = param.tolerance / 100.0
+        self.qmin = max(param.qmin, 0.0)
+        self.qmax = (100.0 if param.qmax > 100 else
+                     param.qmin if param.qmax < param.qmin else param.qmax)
+        self.q = min(max(initial_q, self.qmin), self.qmax)
+        self.value = 0.0
+        self.pass_count = 0
+        return True
+
+    def update(self, result: float) -> bool:
+        """Record `result`; return True when converged."""
+        self.value = result
+        if abs(self.value - self.target) < self.tolerance * self.target:
+            return True
+        if self.value > self.target:
+            self.qmax = self.q
+        else:
+            self.qmin = self.q
+        q = (self.qmin + self.qmax) / 2.0
+        converged = abs(q - self.q) < 0.15
+        self.q = q
+        return converged
+
+    def next_matrices(self) -> np.ndarray:
+        return quant_matrices_for_quality(self.q)
+
+
 @dataclasses.dataclass
 class EncoderParam:
     quality: float = C.DEFAULT_QUALITY
@@ -68,13 +107,14 @@ class EncoderParam:
     quantization_bias: int = C.DEFAULT_BIAS
     qdelta_max_luma: int = C.DEFAULT_DELTA_MAX_LUMA
     qdelta_max_chroma: int = C.DEFAULT_DELTA_MAX_CHROMA
-    # target search (not ported yet: the engine rejects passes > 1)
+    # target search
     target_mode: int = TARGET_NONE
     target_value: float = 0.0
     passes: int = 1
     tolerance: float = 1.0     # percent, like the reference default
     qmin: float = 0.0
     qmax: float = 100.0
+    search_hook: Optional[SearchHook] = None
     # metadata
     exif: bytes = b""
     iccp: bytes = b""
@@ -112,6 +152,22 @@ class EncoderParam:
                              tolerance: int = 0) -> "EncoderParam":
         self.min_quant_matrices = np.asarray(m, dtype=np.uint8).reshape(2, 64)
         self.min_quant_tolerance = tolerance
+        return self
+
+    def set_target_size(self, size: int, tolerance: float = 1.0,
+                        passes: int = 10) -> "EncoderParam":
+        self.target_mode = TARGET_SIZE
+        self.target_value = float(size)
+        self.tolerance = tolerance
+        self.passes = passes
+        return self
+
+    def set_target_psnr(self, psnr: float, tolerance: float = 1.0,
+                        passes: int = 10) -> "EncoderParam":
+        self.target_mode = TARGET_PSNR
+        self.target_value = float(psnr)
+        self.tolerance = tolerance
+        self.passes = passes
         return self
 
     @property

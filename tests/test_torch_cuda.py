@@ -217,3 +217,57 @@ def test_method7_gpu_matches_cpu(share):
     assert (engine.encode_batch(rgb, param, share_statistics=share)
             == engine.encode_batch(rgb, param, share_statistics=share,
                                    device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_images,per_img", [(3, 700), (8, 48), (2, 1024)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_sample_pack_per_image_matches_plain_on_gpu(n_images, per_img,
+                                                    dtype):
+    """sample_pack with per-image quantizers and LUTs == its plain version,
+    where a CTA's 128 rows straddle two images (700), many images (48), or
+    none (1024), with int16 and int32 samples (chroma +128 included)."""
+    _need_cuda()
+    n = n_images * per_img
+    rng = np.random.RandomState(22)
+    samples = rng.randint(-128, 129, (n, 64))
+    samples[::7] //= 16                                  # smoother rows
+    rl, dc, group = _vlc_state(n_images, per_img, 23)
+    dcl, acl, _, _ = huffman_device.luts_and_desc_from_freqs(
+        *engine._grouped_stats(rl, dc, group, n_images))
+    per_qms = [engine._quant_matrices(EncoderParam(quality=q))
+               for q in ((30, 75, 100, 90)[i % 4] for i in range(n_images))]
+    iq3, ib3 = state.arrays_to_device(
+        *(np.stack(a) for a in zip(*map(engine._quant_arrays, per_qms))),
+        device="cuda")
+    args = (torch.from_numpy(samples).to("cuda", dtype), dc, group, iq3,
+            ib3, dcl, acl)
+    before = sample_pack.sample_pack.per_image_launches
+    words, bits = sample_pack.sample_pack(*args)
+    assert sample_pack.sample_pack.per_image_launches == before + 1
+    pw, pb = sample_pack.sample_pack_plain(*args)
+    assert torch.equal(bits, pb) and torch.equal(words, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(),                                          # size, device loop
+    dict(target_mode=2, target_value=33.0),          # PSNR, device loop
+    dict(passes=10),                                 # pass by pass
+    dict(use_trellis=True),                          # trellis rate tables
+    dict(huffman_compress=False, adaptive_quantization=False),
+])
+def test_search_gpu_matches_cpu(kw):
+    """The batched search on the card == the CPU path's bytes."""
+    _need_cuda()
+    rgb = np.random.RandomState(24).randint(0, 256, (2, 40, 24, 3)).astype(
+        np.uint8)
+    base = dict(quality=90, yuv_mode=C.YUV_420, target_mode=1,
+                target_value=900.0, passes=5, tolerance=2.0)
+    param = EncoderParam(**dict(base, **kw))
+    before = sample_pack.sample_pack.per_image_launches
+    got = engine.encode_batch(rgb, param)
+    if param.passes <= 8 and not param.use_trellis and kw.get(
+            "target_mode", 1) == 1:
+        assert sample_pack.sample_pack.per_image_launches > before
+    assert got == engine.encode_batch(rgb, param, device="cpu")

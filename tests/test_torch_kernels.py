@@ -29,7 +29,7 @@ from sjpeg_tpu.params import quant_matrices_for_quality as j_qmq
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, state
 from sjpeg_tpu_torch.ops import colorspace, sample_pack
-from sjpeg_tpu_torch.params import EncoderParam
+from sjpeg_tpu_torch.params import TARGET_SIZE, EncoderParam, SearchHook
 
 REPO = Path(__file__).resolve().parents[1]
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
@@ -261,9 +261,10 @@ def test_port_imports_neither_jax_nor_sjpeg_tpu():
     dict(huffman_compress=False, yuv_mode=C.YUV_AUTO),
     dict(huffman_compress=False, adaptive_quantization=False,
          yuv_mode=C.YUV_SHARP),
-    dict(huffman_compress=False, adaptive_quantization=False,
-         yuv_mode=C.YUV_420, passes=3),
-    dict(use_trellis=True, passes=3, yuv_mode=C.YUV_420),   # method 7
+    dict(yuv_mode=C.YUV_420, search_hook=SearchHook(),      # A4
+         target_mode=TARGET_SIZE, target_value=900.0, passes=3),
+    dict(yuv_mode=C.YUV_AUTO, target_mode=TARGET_SIZE,      # A8
+         target_value=900.0, passes=3),
 ])
 def test_unported_configurations_raise(kw):
     rgb = np.zeros((1, 16, 16, 3), np.uint8)
