@@ -28,7 +28,18 @@ against the plain PyTorch versions on the same card:
   kernel at 16 x 1024^2, 1000 x 750 and images under 128 blocks),
   search_path (launches, bytes vs the plain-forced path, sizes against the
   target), search_cases (PSNR, passes=10, methods 0, 1 and 7, gray, NV12,
-  a bucket overflow, GPU vs CPU path), search_timing, search_breakdown.
+  a bucket overflow, GPU vs CPU path), search_timing, search_breakdown;
+- the single-image API (encode_rgb, encode_gray, encode_yuv, the
+  single-image search, custom search hooks), through the standalone fDCT
+  (fdct) and the coefficients-in pack (quant_pack) besides the kernels
+  above.  Phases: single_kernels (fdct and quant_pack vs their plain
+  versions at 16 x 1024^2, and their times), single_parity (1000 x 750:
+  every entry point, method and search, and a custom hook through
+  encode_batch, vs the plain-forced path), single_path and single_timing
+  (a 4032 x 3024 12-MP photo: encode_rgb methods 0 and 4, encode_yuv
+  method 0, an encode_rgb size search);
+- the serving wrappers: serving (encode_pipelined over four 16 x 1024^2
+  batches vs encode_batch, and encode_many on mixed shapes vs encode_rgb).
 
 One JSON line each.  Then the `kernels` line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  Any failure raises and
@@ -106,12 +117,44 @@ def method4(mode: int, quality: float = QUALITY, method: int = 4):
                         huffman_compress=method != 3)
 
 
+def method_param(method: int, mode: int, quality: float = QUALITY):
+    """Parameters of method 0, 1, 3, 4 or 7."""
+    if method == 0:
+        return method0(mode, quality)
+    if method == 7:
+        return method7(mode, quality)
+    return method4(mode, quality, method)
+
+
+def stateful_hook():
+    """A custom SearchHook: bisection that starts 10 below the estimated
+    quality for every image it has been set up for, state that runs
+    across a batch."""
+    from sjpeg_tpu_torch.params import SearchHook
+
+    class Stateful(SearchHook):
+        def __init__(self):
+            self.images = 0
+
+        def setup(self, param, initial_q):
+            ok = super().setup(param, initial_q)
+            self.images += 1
+            self.q = max(self.qmin, min(self.qmax,
+                                        initial_q - 10.0 * self.images))
+            return ok
+
+    return Stateful()
+
+
 @contextlib.contextmanager
 def plain_forced():
     """Patch the engine's kernel calls with the plain versions (this
-    script only: the package itself never falls back)."""
-    from sjpeg_tpu_torch.ops import (merge_codesizes, sample_pack,
-                                     stream_concat, trellis, vlc_pack)
+    script only: the package itself never falls back).  fdct and
+    quant_pack are patched on their own modules, which every caller reads
+    them from."""
+    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quant_pack,
+                                     sample_pack, stream_concat, trellis,
+                                     vlc_pack)
     packs = dict(
         sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
         stream_concat=mock.Mock(
@@ -123,7 +166,10 @@ def plain_forced():
             vlc_pack=mock.Mock(vlc_pack=vlc_pack.vlc_pack_plain)), \
             mock.patch.multiple("sjpeg_tpu_torch.engine_search", **packs), \
             mock.patch("sjpeg_tpu_torch.ops.huffman_device.merge_codesizes",
-                       merge_codesizes.merge_codesizes_plain):
+                       merge_codesizes.merge_codesizes_plain), \
+            mock.patch.object(fdct, "fdct_blocks", fdct.fdct_blocks_plain), \
+            mock.patch.object(quant_pack, "quant_pack",
+                              quant_pack.quant_pack_plain):
         yield
 
 
@@ -389,6 +435,10 @@ def main() -> int:
     search_row, rate_launches = search_phases(card, rgb)
     rows[-1]["search_per_image_rate_launches"] = rate_launches
     rows.append(search_row)
+    torch.cuda.empty_cache()
+    rows += single_phases(card, rgb)
+    torch.cuda.empty_cache()
+    serving_phases(card, rgb)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -669,7 +719,7 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     iq, ib = state.arrays_to_device(*quant, device=dev)
     qq, lt = state.arrays_to_device(engine._clamped_quant(per_qms, False),
                                     trellis_cost_lens(), device=dev)
-    cinter, group, dc = engine._stage_trellis_prep(coeffs, iq, ib, nb, BATCH)
+    cinter, dc, group = engine._interleave_coeffs(coeffs, iq, ib, nb, BATCH)
     del coeffs, src
     n = cinter.shape[0]
     levels = trellis.trellis_quantize(cinter, iq, ib, qq, group, lt, BATCH)
@@ -811,7 +861,7 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     i_, b_, q_, l_ = stage("upload_tables", lambda: state.arrays_to_device(
         *qa, engine._clamped_quant(qms, False), trellis_cost_lens(),
         device=dev))
-    ci, gr, dcc = stage("trellis_prep", lambda: engine._stage_trellis_prep(
+    ci, dcc, gr = stage("trellis_prep", lambda: engine._interleave_coeffs(
         co, i_, b_, nb, BATCH))
     del co
     lv = stage("trellis", lambda: trellis.trellis_quantize(
@@ -985,8 +1035,7 @@ def search_phases(card: str, rgb: np.ndarray):
         if name == "overflow":
             img[0] = np.random.RandomState(SEED).randint(0, 256, (h, w, 3))
         method, q = kw.get("method", 4), kw.get("quality", QUALITY)
-        p = (method7(mode, q) if method == 7 else
-             method0(mode, q) if method == 0 else method4(mode, q, method))
+        p = method_param(method, mode, q)
         if "psnr" in kw:
             p.set_target_psnr(kw["psnr"], passes=kw["passes"])
         else:
@@ -1101,6 +1150,241 @@ def search_phases(card: str, rgb: np.ndarray):
                      per_image_ms, plain_ms, sp_bytes, sp_ops,
                      shared_tables_ms=shared_ms)
     return row, rate_launches
+
+
+def single_phases(card: str, rgb: np.ndarray) -> list:
+    """The single-image API and the last two kernels: single_kernels,
+    single_parity, single_path and single_timing; returns the kernel rows
+    of fdct and quant_pack."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, kernels, pipeline, state
+    from sjpeg_tpu_torch.huffman import k3_default_tables
+    from sjpeg_tpu_torch.ops import (colorspace, fdct, merge_codesizes,
+                                     quant_pack, quantize, sample_pack,
+                                     stream_concat, trellis, vlc_pack)
+    from sjpeg_tpu_torch.params import SearchHook
+
+    dev = torch.device(DEVICE)
+
+    # ---- single_kernels: both kernels vs plain at 16 x 1024^2 ------------
+    layout = pipeline.component_layout(C.YUV_420, WIDTH, HEIGHT)
+    nb = tuple(layout.nb_blocks)
+    blocks = colorspace.rgb_to_blocks(torch.from_numpy(rgb).to(dev),
+                                      C.YUV_420, WIDTH, HEIGHT)
+    per_comp = [b.shape[0] for b in blocks]
+    samples = torch.cat(blocks)                      # int32, as staged
+    del blocks
+    n = samples.shape[0]
+    coeffs = fdct.fdct_blocks(samples)
+    torch.cuda.synchronize()
+    err_fdct = max_err([(coeffs, fdct.fdct_blocks_plain(samples))])
+    tables = state.tables_from_numpy(
+        *engine._quant_arrays(engine._quant_matrices(method0(C.YUV_420))),
+        *engine._host_luts(k3_default_tables()), dev)
+    cinter, dc, group = engine._interleave_coeffs(
+        list(coeffs.split(per_comp)), tables[0], tables[1], nb, BATCH)
+    qargs = (cinter, dc, group, *tables)
+    words, bits = quant_pack.quant_pack(*qargs)
+    pwords, pbits = quant_pack.quant_pack_plain(*qargs)
+    torch.cuda.synchronize()
+    err_qp = max_err([(words, pwords), (bits, pbits)])
+    del pwords, pbits
+
+    fd_fn = kernels.function("fdct", "sjpeg_fdct", fdct._ARGTYPES)
+    qp_fn = kernels.function("quant_pack", "sjpeg_quant_pack",
+                             quant_pack._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    s16 = samples.to(torch.int16)
+
+    def launch_fdct(x):
+        kernels.check(fd_fn(x.data_ptr(), x.element_size(),
+                            coeffs.data_ptr(), n, stream), "fdct")
+
+    def launch_quant_pack():
+        kernels.check(qp_fn(*(t.data_ptr() for t in qargs), words.data_ptr(),
+                            bits.data_ptr(), n, stream), "quant_pack")
+
+    fd_ms = event_ms(lambda: launch_fdct(samples), 20)
+    fd16_ms = event_ms(lambda: launch_fdct(s16), 20)
+    qp_ms = event_ms(launch_quant_pack, 20)
+    fd_plain_ms = event_ms(lambda: fdct.fdct_blocks_plain(samples), 3)
+    qp_plain_ms = event_ms(lambda: quant_pack.quant_pack_plain(*qargs), 3)
+    emit("single_kernels", gpu=card, blocks=n, fdct_max_abs_err=err_fdct,
+         quant_pack_max_abs_err=err_qp, fdct_ms=fd_ms, fdct_int16_ms=fd16_ms,
+         fdct_plain_ms=fd_plain_ms, quant_pack_ms=qp_ms,
+         quant_pack_plain_ms=qp_plain_ms, total_bits=int(bits.long().sum()))
+    need(err_fdct == 0, "fdct bit-exact against its plain version")
+    need(err_qp == 0, "quant_pack bit-exact against its plain version")
+    ac_nonzero = int((quantize.quantize_values(
+        cinter, tables[0].long()[group.long()],
+        tables[1].long()[group.long()])[:, 1:] != 0).sum())
+    del samples, s16, coeffs, cinter, dc, group, qargs, words, bits
+
+    # ---- single_parity: card vs the plain-forced path at 1000 x 750 -----
+    img = make_rgb(2, 750, 1000, SEED + 500)
+    one = img[0]
+    p420 = (one[..., 0].copy(), one[::2, ::2, 1].copy(),
+            one[::2, ::2, 2].copy())
+    p444 = tuple(one[..., c].copy() for c in range(3))
+    runs = {}
+    for m in (0, 1, 3, 4, 7):
+        runs[f"rgb_m{m}"] = lambda m=m: engine.encode_rgb(
+            one, method_param(m, C.YUV_420), device=dev)
+    for m in (0, 4):
+        runs[f"gray_m{m}"] = lambda m=m: engine.encode_gray(
+            p420[0], method_param(m, C.YUV_400), device=dev)
+        runs[f"yuv420_m{m}"] = lambda m=m: engine.encode_yuv(
+            *p420, True, method_param(m, C.YUV_420), device=dev)
+        runs[f"yuv444_m{m}"] = lambda m=m: engine.encode_yuv(
+            *p444, False, method_param(m, C.YUV_444), device=dev)
+    for m in (0, 4, 7):
+        runs[f"size_search_m{m}"] = lambda m=m: engine.encode_rgb(
+            one, method_param(m, C.YUV_420).set_target_size(60_000,
+                                                            passes=6),
+            device=dev)
+        runs[f"psnr_search_m{m}"] = lambda m=m: engine.encode_rgb(
+            one, method_param(m, C.YUV_420).set_target_psnr(36.0, passes=6),
+            device=dev)
+
+    def hook_batch():
+        p = method4(C.YUV_420).set_target_size(60_000, passes=5)
+        p.search_hook = stateful_hook()
+        return engine.encode_batch(img, p, device=dev)
+
+    runs["custom_hook_batch"] = hook_batch
+    cases, sizes = {}, {}
+    for name, fn in runs.items():
+        got = fn()
+        with plain_forced():
+            cases[name] = got == fn()
+        sizes[name] = (len(got) if isinstance(got, bytes)
+                       else [len(j) for j in got])
+    emit("single_parity", width=1000, height=750, sizes=sizes, **cases)
+    need(all(cases.values()), "every single-image case byte-equal")
+
+    # ---- single_path: a 12-MP phone photo through the entry points ------
+    bh, bw = 3024, 4032
+    big = make_rgb(1, bh, bw, SEED + 600)[0]
+    planes = (big[..., 0].copy(), big[::2, ::2, 1].copy(),
+              big[::2, ::2, 2].copy())
+    m4_bytes = len(engine.encode_rgb(big, method4(C.YUV_420), device=dev))
+    target = int(0.6 * m4_bytes)
+    search_param = method4(C.YUV_420).set_target_size(target, passes=8)
+    runs = {
+        "rgb_m0": lambda: engine.encode_rgb(big, method0(C.YUV_420),
+                                            device=dev),
+        "rgb_m4": lambda: engine.encode_rgb(big, method4(C.YUV_420),
+                                            device=dev),
+        "yuv420_m0": lambda: engine.encode_yuv(*planes, True,
+                                               method0(C.YUV_420),
+                                               device=dev),
+        "rgb_m4_size_search": lambda: engine.encode_rgb(big, search_param,
+                                                        device=dev)}
+    counted = {"fdct": fdct.fdct_blocks, "quant_pack": quant_pack.quant_pack,
+               "sample_pack": sample_pack.sample_pack,
+               "stream_concat": stream_concat.stream_concat,
+               "vlc_pack": vlc_pack.vlc_pack,
+               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "trellis": trellis.trellis_quantize}
+    launches, jpegs, same, passes = {}, {}, {}, {}
+    for name, fn in runs.items():
+        for k in counted.values():
+            k.launches = 0
+        with mock.patch.object(SearchHook, "update", autospec=True,
+                               side_effect=SearchHook.update) as upd:
+            jpegs[name] = fn()
+        launches[name] = {k: f.launches for k, f in counted.items()}
+        passes[name] = upd.call_count
+        with plain_forced():
+            same[name] = jpegs[name] == fn()
+    blocks_big = engine._blocks_per_image(
+        pipeline.component_layout(C.YUV_420, bw, bh))
+    emit("single_path", width=bw, height=bh, blocks=blocks_big,
+         launches=launches, bytes={k: len(j) for k, j in jpegs.items()},
+         method4_q75_bytes=m4_bytes, target_bytes=target, passes=passes,
+         byte_equal_plain=same)
+    need(all(same.values()), "single-image bytes equal the plain-forced path")
+    need(all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9"
+             for j in jpegs.values()), "SOI/EOI markers")
+    need(launches["rgb_m0"]["sample_pack"] == 1
+         and launches["rgb_m4"]["fdct"] > 0
+         and launches["rgb_m4"]["vlc_pack"] == 1
+         and launches["yuv420_m0"]["fdct"] > 0
+         and launches["yuv420_m0"]["quant_pack"] == 1
+         and launches["rgb_m4_size_search"]["merge_codesizes"] > 0
+         and all(v["stream_concat"] > 0 for v in launches.values()),
+         "the single-image paths ran fdct, quant_pack, sample_pack, "
+         "vlc_pack, merge_codesizes and stream_concat")
+    need(abs(len(jpegs["rgb_m4_size_search"]) - target) < 0.1 * target,
+         "the size search within 10% of its target")
+
+    # ---- single_timing --------------------------------------------------
+    mpx = bh * bw / 1e6
+    ms = {name: host_ms(fn, 5) for name, fn in runs.items()}
+    emit("single_timing", gpu=card, ms=ms, megapixels=mpx,
+         mpx_per_s={k: mpx / (v / 1e3) for k, v in ms.items()},
+         passes=passes)
+
+    # ---- kernel rows ----------------------------------------------------
+    # fdct: the int32 samples read once, the coefficients written once;
+    # ~1,250 32-bit operations a block.  quant_pack: the coefficients, DC
+    # codes, groups and the one table set read once, words and counts
+    # written once; ~7 operations a coefficient to quantize and test, ~20
+    # a coded coefficient to code and pack.
+    fd_bytes = n * 64 * 4 * 2
+    qp_bytes = (n * 64 * 4 + 8 * n + 4 * sum(t.numel() for t in tables)
+                + n * 64 * 4 + 4 * n)
+    total = {k: sum(v[k] for v in launches.values()) for k in counted}
+    return [
+        kernel_row("fdct", "sjpeg_tpu_torch/csrc/fdct.cu",
+                   "sjpeg_tpu/ops/pallas_fdct.py:270", total["fdct"],
+                   err_fdct, fd_ms, fd_plain_ms, fd_bytes, n * 1250,
+                   int16_ms=fd16_ms),
+        kernel_row("quant_pack", "sjpeg_tpu_torch/csrc/quant_pack.cu",
+                   "sjpeg_tpu/ops/pallas_quant_pack.py:493",
+                   total["quant_pack"], err_qp, qp_ms, qp_plain_ms, qp_bytes,
+                   n * 63 * 7 + ac_nonzero * 20)]
+
+
+def serving_phases(card: str, rgb: np.ndarray) -> None:
+    """The serving wrappers: encode_pipelined over four 16 x 1024^2
+    batches against sequential encode_batch, and encode_many on mixed
+    shapes against encode_rgb per image."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine
+
+    dev = torch.device(DEVICE)
+    batches = [rgb, np.ascontiguousarray(rgb[:, ::-1]),
+               np.ascontiguousarray(rgb[:, :, ::-1]), 255 - rgb]
+    param = method0(C.YUV_420)
+
+    def sequential():
+        return [engine.encode_batch(b, param, device=dev) for b in batches]
+
+    def pipelined():
+        return list(engine.encode_pipelined(batches, param, depth=2,
+                                            device=dev))
+
+    seq = sequential()
+    same_pipelined = pipelined() == seq
+    seq_ms = host_ms(sequential, 3) / len(batches)
+    pipe_ms = host_ms(pipelined, 3) / len(batches)
+
+    small, vga = make_rgb(2, 750, 1000, SEED + 700), make_rgb(2, 480, 640,
+                                                              SEED + 701)
+    mixed = [rgb[0], small[0], vga[0], rgb[1], vga[1], small[1], rgb[2]]
+    p4 = method4(C.YUV_420)
+    many = engine.encode_many(mixed, p4, device=dev)
+    same_many = many == [engine.encode_rgb(im, p4, device=dev)
+                         for im in mixed]
+    emit("serving", gpu=card, batches=len(batches), batch=BATCH,
+         pipelined_equals_encode_batch=same_pipelined,
+         encode_batch_ms_per_batch=seq_ms,
+         encode_pipelined_ms_per_batch=pipe_ms, depth=2,
+         many_shapes=[list(im.shape) for im in mixed],
+         encode_many_equals_encode_rgb=same_many)
+    need(same_pipelined, "encode_pipelined equals encode_batch per batch")
+    need(same_many, "encode_many equals encode_rgb per image")
 
 
 if __name__ == "__main__":

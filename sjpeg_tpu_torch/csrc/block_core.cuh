@@ -3,14 +3,17 @@
 // MSB-first bit packing of one 8x8 block.
 //
 // Every function is __host__ __device__ so the same code builds with nvcc
-// for the kernels (sample_pack.cu, vlc_pack.cu) and with a host compiler for
-// tests, which supply their own empty __host__/__device__ definitions.  The
-// emission half, emit_block, is shared: sample_pack feeds it the fields it
-// derives from the quantized coefficients, vlc_pack the fields it is given.
+// for the kernels (fdct.cu, quant_pack.cu, sample_pack.cu, vlc_pack.cu) and
+// with a host compiler for tests, which supply their own empty
+// __host__/__device__ definitions.  The emission half, emit_block, is
+// shared: quant_emit_block feeds it the fields it derives from quantized
+// coefficients (quant_pack, and sample_pack after fdct_block), vlc_pack the
+// fields it is given; fdct runs fdct_block alone.
 //
 // Bit-exact contract: the result equals the port's plain PyTorch chain
-// ops/fdct.fdct_blocks -> ops/quantize -> ops/vlc.block_entries_grouped ->
-// ops/pack.pack_block_entries, itself held against the JAX package.  The
+// ops/fdct.fdct_blocks_plain -> ops/quantize ->
+// ops/vlc.block_entries_grouped -> ops/pack.pack_block_entries, itself held
+// against the JAX package.  The
 // reference computes in int32 with wraparound; here wrapping arithmetic runs
 // on uint32 (defined in C++) and values turn signed only for the arithmetic
 // right shifts, the int16 store emulation and the sign tests.
@@ -208,16 +211,17 @@ SJ_HD int emit_block(uint32_t dc_code, const uint32_t* dc_lut,
   return total;
 }
 
-// One block: raster samples x[64] (destroyed), its DC diff code
-// (n | suffix << 4), its table group g (0 luma, 1 chroma), quantizer rows
-// iquant/bias [2 * 64] (raster), packed (code << 16 | len) LUTs dc_lut
-// [2 * 16] and ac_lut [2 * 256].  Writes out[0..63] (zero past the stream)
-// and returns the exact bit count.
-SJ_HD int encode_block(uint32_t x[64], uint32_t dc_code, int g,
-                       const uint32_t* iquant, const uint32_t* bias,
-                       const uint32_t* dc_lut, const uint32_t* ac_lut,
-                       uint32_t* out) {
-  fdct_block(x);
+// Quantize-and-emit half of one block: raster coefficients x[64] (x16
+// scale, as fdct_block leaves them), its DC diff code (n | suffix << 4), its
+// table group g (0 luma, 1 chroma), quantizer rows iquant/bias [2 * 64]
+// (raster), packed (code << 16 | len) LUTs dc_lut [2 * 16] and ac_lut
+// [2 * 256].  Writes out[0..63] (zero past the stream) and returns the exact
+// bit count.  quant_pack runs it on coefficients, sample_pack after
+// fdct_block.
+SJ_HD int quant_emit_block(const uint32_t x[64], uint32_t dc_code, int g,
+                           const uint32_t* iquant, const uint32_t* bias,
+                           const uint32_t* dc_lut, const uint32_t* ac_lut,
+                           uint32_t* out) {
   const uint32_t* iq = iquant + 64 * g;
   const uint32_t* ib = bias + 64 * g;
   const int zigzag[64] = SJPEG_ZIGZAG;
@@ -237,6 +241,16 @@ SJ_HD int encode_block(uint32_t x[64], uint32_t dc_code, int g,
     last = k;
   };
   return emit_block(dc_code, dc_lut + 16 * g, ac_lut + 256 * g, fields, out);
+}
+
+// One block from raster samples x[64] (destroyed): fdct_block, then
+// quant_emit_block with the same arguments.
+SJ_HD int encode_block(uint32_t x[64], uint32_t dc_code, int g,
+                       const uint32_t* iquant, const uint32_t* bias,
+                       const uint32_t* dc_lut, const uint32_t* ac_lut,
+                       uint32_t* out) {
+  fdct_block(x);
+  return quant_emit_block(x, dc_code, g, iquant, bias, dc_lut, ac_lut, out);
 }
 
 }  // namespace sjpeg

@@ -20,10 +20,10 @@
 // operations per block, is ~0.8 G operations.  Design: one thread per
 // block, 128 blocks per CTA.  The CTA stages its 128 x 64 samples through
 // shared memory so that global reads and writes are coalesced (rows padded
-// to 65 words: no bank conflicts when each thread walks its own row), runs
-// the per-block core of block_core.cuh with the block in registers, and
-// writes its stream words into the same shared rows before the coalesced
-// store.  Serial emission per thread diverges across a warp; that is the
+// to 65 words, block_rows.cuh: no bank conflicts when each thread walks its
+// own row), runs the per-block core of block_core.cuh with the block in
+// registers, and writes its stream words into the same shared rows before
+// the coalesced store.  Serial emission per thread diverges across a warp; that is the
 // first thing a faster version changes (a warp per block, ballot and scan).
 // Tables: the shared-table instance stages the one set; the per-image
 // instance stages the sets of the (at most two) images its 128 rows span,
@@ -34,11 +34,12 @@
 #include <stdint.h>
 
 #include "block_core.cuh"
+#include "block_rows.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // blocks per CTA, one per thread
-constexpr int kStride = 65;     // padded shared-memory row, in words
+constexpr int kThreads = sjpeg::kRowThreads;   // blocks per CTA
+constexpr int kStride = sjpeg::kRowStride;     // padded row, in words
 constexpr int kQSet = 2 * 64;   // one set's iquant (or bias) rows
 constexpr int kDcSet = 2 * 16;  // one set's DC LUT rows
 constexpr int kAcSet = 2 * 256; // one set's AC LUT rows
@@ -74,9 +75,7 @@ sample_pack_kernel(const T* __restrict__ samples,
     s_dc[i] = dc_lut[(int64_t)set_lo * kDcSet + i];
   for (int i = tid; i < staged * kAcSet; i += kThreads)
     s_ac[i] = ac_lut[(int64_t)set_lo * kAcSet + i];
-  const T* src = samples + n0 * 64;
-  for (int i = tid; i < rows * 64; i += kThreads)
-    buf[(i >> 6) * kStride + (i & 63)] = (uint32_t)(int32_t)src[i];
+  sjpeg::load_rows(samples + n0 * 64, rows, buf);
   __syncthreads();
 
   uint32_t x[64];
@@ -103,9 +102,7 @@ sample_pack_kernel(const T* __restrict__ samples,
   }
   __syncthreads();
 
-  uint32_t* dst = words + n0 * 64;
-  for (int i = tid; i < rows * 64; i += kThreads)
-    dst[i] = buf[(i >> 6) * kStride + (i & 63)];
+  sjpeg::store_rows(buf, rows, words + n0 * 64);
 }
 
 template <typename T>

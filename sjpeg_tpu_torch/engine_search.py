@@ -40,6 +40,10 @@ An image whose stream outgrows the bucket, or whose device decision
 disagrees with the float hook, is searched again alone through route 3
 with a bucket of 64 words a block, which cannot overflow.  On the CPU the
 same routes run with the kernels' plain versions.
+
+`encode_search_one` is the single-image search of engine.encode_rgb (and
+the gray and planar entry points): one pass at a time with the hook on the
+host, which is how a custom `param.search_hook` runs, in a batch too.
 """
 
 import math
@@ -677,3 +681,113 @@ def encode_batch_search(src, src_kind: str, yuv_mode: int, w: int, h: int,
     byte-identical to sjpeg_tpu.engine.encode_batch."""
     return _Search(src, src_kind, yuv_mode, w, h, param,
                    bits_per_pixel_budget).run()
+
+
+def encode_search_one(coeffs, histos, layout, param: EncoderParam) -> bytes:
+    """One image's target-size / target-PSNR dichotomy over its
+    coefficients on the card, the counterpart of
+    sjpeg_tpu.engine._encode_search_device: the hook (param.search_hook, or
+    the default bisection) runs on the host, one fetch a pass.
+
+    A size pass with Huffman optimization builds its tables on the card
+    (ops/huffman_device) and packs through vlc_pack; methods 0 and 3 pack
+    straight from the coefficients through quant_pack.  Method 7's [2, 256]
+    rate lengths take each size pass's new code lengths (the reference's
+    InitCodes(true) in StoreRunLevels, src/dichotomy.cc:83-85, 144).  A
+    PSNR pass computes the exact squared error alone.  The final pass runs
+    at the best matrices unless the best pass was the last size pass,
+    whose streams are kept.  histos: the fetched [2, 64, bins] histograms
+    with adaptive quantization, else None."""
+    flags = method_flags(param.method)
+    dev = coeffs[0].device
+    optimize = flags["optimize_size"]
+    min_qmats = param.resolved_min_quant_matrices()
+    hook = param.search_hook or SearchHook()
+    initial_q = min(max(estimate_quality(
+        param.resolved_quant_matrices()[0]), 0.0), 100.0)
+    hook.setup(param, initial_q)
+    defaults = k3_default_tables()
+    n_groups = 2 if layout.nb_comps > 1 else 1
+    nb_blocks = tuple(layout.nb_blocks)
+    n_blocks = sum(int(co.shape[0]) for co in coeffs)
+    dcl_def, acl_def = state.arrays_to_device(*engine._host_luts(defaults),
+                                              device=dev)
+    cost_lens = (state.arrays_to_device(trellis_cost_lens(), device=dev)[0]
+                 if flags["use_trellis"] else None)
+
+    def make_qms():
+        # next_matrices() once per table, as the JAX engine calls it
+        qmats = [hook.next_matrices()[c] for c in range(2)]
+        qms = [spec.finalize_quant_matrix(qmats[g], min_qmats[g],
+                                          param.quantization_bias)
+               for g in range(2)]
+        if flags["use_adaptive_quant"]:
+            qms = engine._tuned_qms(qms, histos, param, n_groups)
+        return qms
+
+    best = best_q = best_result = 0.0
+    last_is_best = False
+    opt_quants = kept = None
+    for p in range(min(max(param.passes, 1), 20)):
+        hook.pass_count = p
+        qms = make_qms()
+        iq, ib = state.arrays_to_device(*engine._quant_arrays(qms),
+                                        device=dev)
+        if hook.for_size and optimize:
+            if flags["use_trellis"]:
+                (qq,) = state.arrays_to_device(
+                    engine._clamped_quant([qms], True), device=dev)
+                vlc_state, freqs = engine._stage_quantize_trellis(
+                    coeffs, iq, ib, qq, cost_lens, True, nb_blocks, 1, 1)
+            else:
+                vlc_state, freqs = engine._stage_batch_quantize(
+                    coeffs, iq, ib, True, nb_blocks, 1, 1)
+            dcl, acl, nbs, desc = huffman_device.luts_and_desc_from_freqs(
+                freqs[0][None], freqs[1][None], n_groups)
+            if flags["use_trellis"]:
+                new_lens = acl[0] & 0xFF
+                cost_lens = torch.where(new_lens > 0, new_lens, cost_lens)
+            words, totals = engine._stage_pack(vlc_state, dcl[0], acl[0])
+            ev = _stage_eval_size_nbs(words, totals, nbs)[:, 0].cpu().numpy()
+            hdr = header_size_bits_nbsyms(param, layout.nb_comps, ev[2:6])
+            kept = (words, totals, huffman_device.desc_to_flat(nbs, desc),
+                    qms)
+        elif hook.for_size:
+            words, totals = engine._stage_quant_pack(coeffs, iq, ib, dcl_def,
+                                                     acl_def, nb_blocks)
+            ev = _stage_eval_size_batch(words, totals)[:, 0].cpu().numpy()
+            hdr = header_size_bits(param, layout.nb_comps, defaults)
+            kept = (words, totals, None, qms)
+        if hook.for_size:
+            result = float(np.float32((hdr + int(ev[0]) + 8 * int(ev[1]))
+                                      / 8.0))
+        else:
+            (quant,) = state.arrays_to_device(
+                np.stack([qms[0]["quant"], qms[1]["quant"]]), device=dev)
+            err = int(_batch_qerr(coeffs, iq[None], ib[None], quant[None],
+                                  1)[0])
+            result = get_psnr(err, 64 * n_blocks)
+        last_is_best = p == 0 or abs(result - hook.target) < best
+        if last_is_best:
+            opt_quants = [qms[0]["quant"].copy(), qms[1]["quant"].copy()]
+            best = abs(result - hook.target)
+            best_q = hook.q
+            best_result = result
+        if hook.update(result):
+            break
+
+    qms = [spec.finalize_quant_matrix(opt_quants[g], min_qmats[g],
+                                      param.quantization_bias)
+           for g in range(2)]
+    hook.q = best_q
+    hook.value = best_result
+    if not hook.for_size or not last_is_best:
+        words, totals, tables = engine._stage_one_pass(
+            coeffs, qms, flags, nb_blocks, n_groups, cost_lens)
+    else:
+        words, totals, flat, qms = kept
+        tables = (defaults if flat is None else
+                  huffman_device.tables_from_flat(flat.cpu().numpy(), 0,
+                                                  n_groups))
+    return engine._assemble_jpeg(layout, param, qms, tables,
+                                 engine._scan_bytes(words, totals))

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, `_build/lib<name>-<hash>.so`, where the hash covers the sources
 and flags, so an edited source builds anew.  The first use of any kernel
 builds every missing library, one nvcc per source, all started together.
-Nothing builds while the package is imported.
+Nothing builds while the package is imported.  A module lock serialises
+the first builds and loads of concurrent threads (the serving wrappers
+launch from several), and temporary names carry the pid and the thread.
 """
 
 import ctypes
@@ -12,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -20,6 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _functions = {}
+_lock = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -46,27 +50,30 @@ def library_path(name: str) -> Path:
 def build_all() -> dict:
     """Build every missing library; returns {name: nvcc output} for the
     libraries built by this call.  Raises with nvcc's output on failure."""
-    todo = [n for n in kernel_names() if not library_path(n).exists()]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = nvcc_path()
-    jobs = []
-    for name in todo:
-        target = library_path(name)
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, target, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    logs, errors = {}, []
-    for name, target, tmp, proc in jobs:
-        logs[name] = proc.communicate()[0]
-        if proc.returncode:
-            errors.append(f"{name}: nvcc exited {proc.returncode}\n"
-                          f"{logs[name]}")
-        else:
-            os.replace(tmp, target)      # atomic: concurrent builds agree
+    with _lock:
+        todo = [n for n in kernel_names() if not library_path(n).exists()]
+        if not todo:
+            return {}
+        BUILD_DIR.mkdir(exist_ok=True)
+        nvcc = nvcc_path()
+        jobs = []
+        for name in todo:
+            target = library_path(name)
+            tmp = target.with_name(f"{target.name}.{os.getpid()}."
+                                  f"{threading.get_ident()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            jobs.append((name, target, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, errors = {}, []
+        for name, target, tmp, proc in jobs:
+            logs[name] = proc.communicate()[0]
+            if proc.returncode:
+                errors.append(f"{name}: nvcc exited {proc.returncode}\n"
+                              f"{logs[name]}")
+            else:
+                os.replace(tmp, target)    # atomic: concurrent builds agree
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return logs
@@ -77,13 +84,18 @@ def function(lib_name: str, fn_name: str, argtypes):
     Pointers and the stream are c_void_p, ints c_int; it returns an int
     CUDA error code."""
     key = (lib_name, fn_name)
-    if key not in _functions:
-        build_all()
-        fn = getattr(ctypes.CDLL(str(library_path(lib_name))), fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _functions[key] = fn
-    return _functions[key]
+    fn = _functions.get(key)
+    if fn is None:
+        with _lock:
+            if key not in _functions:
+                build_all()
+                fn = getattr(ctypes.CDLL(str(library_path(lib_name))),
+                             fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _functions[key] = fn
+            fn = _functions[key]
+    return fn
 
 
 def check(rc: int, what: str) -> None:

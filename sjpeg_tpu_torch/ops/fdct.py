@@ -1,6 +1,13 @@
-"""8x8 forward DCT on tensors, integer-exact, output scaled x16.
+"""Kernel 6, fdct: the 8x8 forward DCT on tensors, integer-exact, output
+scaled x16.
 
-The reference's fixed-point butterfly network (column pass,
+Replaces sjpeg_tpu/ops/pallas_fdct.py fdct_blocks_pallas (source and design
+notes in csrc/fdct.cu).  `fdct_blocks` launches the CUDA kernel for CUDA
+tensors and runs `fdct_blocks_plain` for CPU tensors; every plain version of
+the port calls `fdct_blocks_plain`.  `fdct_dc`, the DC lane alone, stays
+tensor code, as it is XLA in the JAX package.
+
+The plain version is the reference's fixed-point butterfly network (column pass,
 src/fdct.cc:67-144) and cosine-table row pass (src/fdct.cc:174-209) with
 the same shift order and LSB correction.  The reference computes in int32
 and wraps; here every value is carried in int64 as its residue mod 2^32,
@@ -9,9 +16,15 @@ shift, the only operation whose result depends on more than the residue.
 int16 stores are emulated by sign extension.
 """
 
+import ctypes
+
 import torch
 
 from .. import constants as C
+from .. import kernels
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -34,7 +47,7 @@ def _sext16(x: torch.Tensor) -> torch.Tensor:
     return ((x & 0xFFFF) ^ 0x8000) - 0x8000
 
 
-def fdct_blocks(blocks: torch.Tensor) -> torch.Tensor:
+def fdct_blocks_plain(blocks: torch.Tensor) -> torch.Tensor:
     """[N, 64] centred samples -> [N, 64] int32 coefficients (x16)."""
     x = blocks.reshape(-1, 8, 8).to(torch.int64)
 
@@ -100,6 +113,29 @@ def fdct_blocks(blocks: torch.Tensor) -> torch.Tensor:
         shr16(C7 * b0 - C5 * b1 + C3 * b2 - C1 * b3),
     ], dim=2)
     return _sext16(out).reshape(-1, 64).to(torch.int32)
+
+
+def fdct_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """[N, 64] centred samples -> [N, 64] int32 coefficients (x16).  On the
+    card `blocks` is a contiguous int16 or int32 tensor."""
+    if blocks.device.type == "cpu":
+        return fdct_blocks_plain(blocks)
+    n = blocks.shape[0]
+    if blocks.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"blocks must be int16 or int32, not {blocks.dtype}")
+    if blocks.shape != (n, 64) or not blocks.is_contiguous():
+        raise ValueError("fdct_blocks takes a contiguous [N, 64] tensor")
+    coeffs = torch.empty((n, 64), dtype=torch.int32, device=blocks.device)
+    fn = kernels.function("fdct", "sjpeg_fdct", _ARGTYPES)
+    with torch.cuda.device(blocks.device):
+        rc = fn(blocks.data_ptr(), blocks.element_size(), coeffs.data_ptr(),
+                n, torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "fdct")
+    fdct_blocks.launches += 1
+    return coeffs
+
+
+fdct_blocks.launches = 0
 
 
 def fdct_dc(blocks: torch.Tensor) -> torch.Tensor:

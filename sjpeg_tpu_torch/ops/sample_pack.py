@@ -5,8 +5,8 @@ Replaces sjpeg_tpu/ops/pallas_quant_pack.py sample_vlc_pack_units_pallas
 and sample_vlc_pack_pallas, shared tables and per-image tables
 (`tiles_per_img`; source and design notes in csrc/sample_pack.cu).
 `sample_pack` launches the CUDA kernel for CUDA tensors and runs
-`sample_pack_plain`, the composition of the port's fdct, quantize, vlc and
-pack modules, for CPU tensors.
+`sample_pack_plain`, the plain fDCT followed by quant_pack's plain version,
+for CPU tensors.
 """
 
 import ctypes
@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from .. import kernels
-from . import fdct, pack, quantize, vlc
+from . import fdct, quant_pack
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -30,21 +30,9 @@ def sample_pack_plain(samples, dc_codes, group, iquant, ibias, dc_luts,
                       ac_luts):
     """The plain PyTorch version; same arguments and results as
     `sample_pack`."""
-    n = samples.shape[0]
-    n_sets = _table_sets(iquant)
-    tab = group.to(torch.int64)
-    if n_sets > 1:                       # row n uses set n // per_img
-        img = torch.arange(n, device=samples.device) // (n // n_sets)
-        tab = img * 2 + tab
-    coeffs = fdct.fdct_blocks(samples)
-    q = quantize.quantize_values(coeffs,
-                                 iquant.reshape(-1, 64).to(torch.int64)[tab],
-                                 ibias.reshape(-1, 64).to(torch.int64)[tab])
-    rl = vlc.run_levels(q)
-    vals, lens = vlc.block_entries_grouped(
-        rl, dc_codes, dc_luts.reshape(-1, 16), ac_luts.reshape(-1, 256), tab)
-    words, bits = pack.pack_block_entries(vals, lens)
-    return pack.to_bits32(words), bits
+    return quant_pack.quant_pack_plain(fdct.fdct_blocks_plain(samples),
+                                       dc_codes, group, iquant, ibias,
+                                       dc_luts, ac_luts)
 
 
 def sample_pack(samples, dc_codes, group, iquant, ibias, dc_luts, ac_luts):

@@ -15,9 +15,9 @@ import torch
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, state
 from sjpeg_tpu_torch.huffman import k3_default_tables, trellis_cost_lens
-from sjpeg_tpu_torch.ops import (colorspace, huffman_device,
-                                 merge_codesizes, sample_pack, stream_concat,
-                                 trellis, vlc, vlc_pack)
+from sjpeg_tpu_torch.ops import (colorspace, fdct, huffman_device,
+                                 merge_codesizes, quant_pack, sample_pack,
+                                 stream_concat, trellis, vlc, vlc_pack)
 from sjpeg_tpu_torch.params import EncoderParam
 
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
@@ -271,3 +271,98 @@ def test_search_gpu_matches_cpu(kw):
             "target_mode", 1) == 1:
         assert sample_pack.sample_pack.per_image_launches > before
     assert got == engine.encode_batch(rgb, param, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 4096])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_fdct_matches_plain_on_gpu(n, dtype):
+    """fdct_blocks == fdct_blocks_plain on the card, from int16 and int32
+    samples, with a ragged last CTA (300) and the full int16 range."""
+    _need_cuda()
+    rng = np.random.RandomState(25)
+    blocks = rng.randint(-128, 129, (n, 64))
+    blocks[::5] = rng.randint(-32768, 32768, blocks[::5].shape)
+    x = torch.from_numpy(blocks).to("cuda", dtype)
+    before = fdct.fdct_blocks.launches
+    got = fdct.fdct_blocks(x)
+    assert fdct.fdct_blocks.launches == before + 1
+    assert torch.equal(got, fdct.fdct_blocks_plain(x))
+    with pytest.raises(ValueError):
+        fdct.fdct_blocks(x.t())                 # not [N, 64] contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [30, 75, 100])
+def test_quant_pack_matches_plain_on_gpu(q):
+    """quant_pack == quant_pack_plain on the coefficients of a 4:2:0 image
+    with 700 blocks (a CTA's rows end mid-MCU) and of int16-range blocks."""
+    _need_cuda()
+    rng = np.random.RandomState(26)
+    rgb = rng.randint(0, 256, (1, 112, 160, 3)).astype(np.uint8)
+    blocks = colorspace.rgb_to_blocks(torch.from_numpy(rgb).cuda(),
+                                      C.YUV_420, 160, 112)
+    coeffs = [fdct.fdct_blocks_plain(b) for b in blocks]
+    coeffs[0][::9] = torch.from_numpy(rng.randint(
+        -32768, 32768, coeffs[0][::9].shape)).to("cuda", torch.int32)
+    param = EncoderParam(quality=q, yuv_mode=C.YUV_420)
+    t = state.tables_from_numpy(
+        *engine._quant_arrays(engine._quant_matrices(param)),
+        *engine._host_luts(k3_default_tables()), "cuda")
+    cinter, dc, group = engine._interleave_coeffs(coeffs, t[0], t[1],
+                                                  NB[C.YUV_420])
+    assert cinter.shape[0] == 420
+    before = quant_pack.quant_pack.launches
+    words, bits = quant_pack.quant_pack(cinter, dc, group, *t)
+    assert quant_pack.quant_pack.launches == before + 1
+    pw, pb = quant_pack.quant_pack_plain(cinter, dc, group, *t)
+    assert torch.equal(bits, pb) and torch.equal(words, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(huffman_compress=False, adaptive_quantization=False),  # sample_pack
+    dict(huffman_compress=False),                               # quant_pack
+    dict(),
+    dict(use_trellis=True),
+    dict(target_mode=1, target_value=900.0, passes=5),
+    dict(huffman_compress=False, adaptive_quantization=False, target_mode=2,
+         target_value=33.0, passes=5),
+])
+def test_encode_rgb_gpu_matches_cpu(kw):
+    """The single-image path on the card == the CPU path's bytes, and
+    encode_gray / encode_yuv (quant_pack for method 0) too."""
+    _need_cuda()
+    rgb = np.random.RandomState(27).randint(0, 256, (40, 24, 3)).astype(
+        np.uint8)
+    param = EncoderParam(yuv_mode=C.YUV_420, quality=85, **kw)
+    assert (engine.encode_rgb(rgb, param)
+            == engine.encode_rgb(rgb, param, device="cpu"))
+    planes = (rgb[..., 0].copy(), rgb[::2, ::2, 1].copy(),
+              rgb[::2, ::2, 2].copy())
+    assert (engine.encode_yuv(*planes, True, param)
+            == engine.encode_yuv(*planes, True, param, device="cpu"))
+    assert (engine.encode_gray(planes[0], param)
+            == engine.encode_gray(planes[0], param, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_encode_pipelined_two_streams_on_gpu():
+    """encode_pipelined at depth 2 runs its batches on two worker streams,
+    not the default stream, and yields encode_batch's bytes in order."""
+    _need_cuda()
+    batches = [np.random.RandomState(28 + i).randint(
+        0, 256, (3, 64, 48, 3)).astype(np.uint8) for i in range(4)]
+    param = EncoderParam(yuv_mode=C.YUV_420)
+    seen = set()
+    wrapped = engine.encode_batch
+
+    def spy(*a, **k):
+        seen.add(torch.cuda.current_stream().cuda_stream)
+        return wrapped(*a, **k)
+
+    with mock.patch.object(engine, "encode_batch", spy):
+        got = list(engine.encode_pipelined(batches, param, depth=2))
+    assert len(seen) == 2
+    assert torch.cuda.default_stream().cuda_stream not in seen
+    assert got == [engine.encode_batch(b, param) for b in batches]

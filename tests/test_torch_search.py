@@ -337,10 +337,15 @@ def test_passes_without_target_encode_once():
 
 
 def test_search_hook_raises_naming_a4():
-    tp = EncoderParam(yuv_mode=C.YUV_420, search_hook=SearchHook())
+    """A custom search_hook (ROADMAP A4, ported) no longer raises: each
+    image runs the single-image search with it, with the JAX engine's
+    bytes; passes == 1 ignores the hook and encodes once."""
+    kw = dict(M0, yuv_mode=C.YUV_420)
+    tp = EncoderParam(search_hook=SearchHook(), **kw)
     tp.set_target_size(900, passes=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        engine.encode_batch(_batch(n=1), tp, device="cpu")
-    # passes == 1 ignores the hook and encodes once
+    jp = JaxParam(search_hook=JHook(), **kw)
+    jp.set_target_size(900, passes=3)
+    assert (engine.encode_batch(_batch(n=1), tp, device="cpu")
+            == jengine.encode_batch(_batch(n=1), jp))
     one = dataclasses.replace(tp, passes=1)
     assert len(engine.encode_batch(_batch(n=1), one, device="cpu")) == 1
