@@ -8,9 +8,11 @@ against the plain PyTorch versions on the same card:
 
 - method 0 (K.3 tables), through sample_pack and stream_concat.  Phases:
   probe, build, parity (each kernel vs its plain version at full size),
-  main_path (launch counts, bytes vs the plain-forced path), cases (4:4:4,
-  4:0:0, 1000 x 750, a bucket overflow, GPU vs CPU path), timing (CUDA
-  events and host clock), breakdown (host clock per stage);
+  sp_long_streams (sample_pack on the longest streams, shared and
+  per-image tables, three or more sets a CTA), main_path (launch counts,
+  bytes vs the plain-forced path), cases (4:4:4, 4:0:0, 1000 x 750, a
+  bucket overflow, GPU vs CPU path), timing (CUDA events and host clock),
+  breakdown (host clock per stage);
 - method 4 (adaptive quantization + per-image optimal Huffman tables),
   through merge_codesizes, vlc_pack and stream_concat.  Phases: m4_parity,
   m4_path, m4_cases (methods 1 and 3, shared statistics, 4:4:4, 4:0:0,
@@ -19,9 +21,9 @@ against the plain PyTorch versions on the same card:
 - method 7 (method 4 with trellis quantization), through trellis,
   merge_codesizes, vlc_pack and stream_concat.  Phases: tr_parity (the
   trellis kernel with per-image and shared matrices and per-image rate
-  tables), tr_path, tr_cases (shared statistics, 4:4:4, 4:0:0,
-  1000 x 750, NV12, q40, q90, an overflow re-pack, GPU vs CPU path),
-  tr_timing, tr_breakdown;
+  tables, and on rows sorted by search work), tr_path, tr_cases (shared
+  statistics, 4:4:4, 4:0:0, 1000 x 750, NV12, q40, q90, an overflow
+  re-pack, GPU vs CPU path), tr_timing, tr_breakdown;
 - the batched target-size search (method 4, set_target_size(200_000,
   passes=8)), through sample_pack with per-image tables, stream_concat
   and merge_codesizes once a pass.  Phases: search_parity (the per-image
@@ -288,8 +290,12 @@ def main() -> int:
     emit("parity", blocks=n, samples_dtype=str(sinter.dtype), bucket=bucket,
          sample_pack_max_abs_err=err1, stream_concat_max_abs_err=err2,
          total_bits=int(totals.long().sum()))
-    need(err1 == 0, "sample_pack bit-exact against its plain version")
     need(err2 == 0, "stream_concat bit-exact against its plain version")
+    long_errs, long_bits = long_stream_parity(dev)
+    emit("sp_long_streams", max_abs_err=long_errs, max_bits=long_bits)
+    err1 = max(err1, *long_errs.values())
+    need(err1 == 0, "sample_pack bit-exact against its plain version")
+    need(long_bits["full_pieces_shared"] == 2048, "a block fills its row")
     need(int(totals.max()) <= bucket * 32, "config 1 fits its bucket")
 
     # ---- 4. main path ---------------------------------------------------
@@ -445,6 +451,68 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def long_stream_parity(dev):
+    """sample_pack against its plain version on the longest streams:
+    full int16-range samples at q100 with the K.3 tables, and with LUTs
+    whose every piece is 32 bits (code lengths 32 - size), where a block
+    with every position coded fills all 2,048 bits of its word row (no
+    stream is longer: at most 64 pieces of at most 32 bits); shared
+    tables, and per-image sets over images of 48 blocks, so that a CTA's
+    128 rows span three or four sets.  Returns ({case: max abs error},
+    {case: the longest stream in bits})."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, state
+    from sjpeg_tpu_torch.huffman import k3_default_tables
+    from sjpeg_tpu_torch.ops import sample_pack, vlc
+
+    rng = np.random.RandomState(SEED + 500)
+    n_img, per_img = 64, 48
+    n = n_img * per_img
+    samples = torch.from_numpy(rng.randint(-32768, 32768, (n, 64))).to(
+        dev, torch.int16)
+    dc = vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-2047, 2048, n)).to(dev), n_img)
+    group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32)).to(
+        dev)
+    quants = [engine._quant_arrays(engine._quant_matrices(
+        method0(C.YUV_420, q))) for q in (100, 95, 90, 85)]
+    size = np.arange(256) & 15
+    full = (np.stack([(rng.randint(0, 1 << 16, 16) << 16)
+                      | (32 - np.arange(16))] * 2),
+            np.stack([(rng.randint(0, 1 << 16, 256) << 16) | (32 - size)]
+                     * 2))
+    errs, longest = {}, {}
+    for lut_name, luts in (("k3", engine._host_luts(k3_default_tables())),
+                           ("full_pieces", full)):
+        for sets in ("shared", "per_image"):
+            if sets == "shared":
+                arrays = (*quants[0], *luts)
+            else:
+                arrays = (*(np.stack([quants[i % 4][k] for i in range(n_img)])
+                            for k in range(2)),
+                          *(np.stack([a] * n_img) for a in luts))
+            t = state.tables_from_numpy(*arrays, dev)
+            got = sample_pack.sample_pack(samples, dc, group, *t)
+            want = sample_pack.sample_pack_plain(samples, dc, group, *t)
+            torch.cuda.synchronize()
+            errs[f"{lut_name}_{sets}"] = max_err(zip(got, want))
+            longest[f"{lut_name}_{sets}"] = int(got[1].max())
+    return errs, longest
+
+
+def sorted_by_search_work(cinter, group, iquant, ibias):
+    """The trellis rows (with their groups) by search work, densest first,
+    so that a warp's rows cost about the same; for shared matrices and
+    rate table only, since per-image sets follow the row index, which the
+    permutation breaks."""
+    from sjpeg_tpu_torch.ops import trellis
+
+    order = torch.argsort(trellis.row_evaluations(cinter, iquant, ibias,
+                                                  group),
+                          descending=True, stable=True)
+    return cinter[order].contiguous(), group[order].contiguous()
 
 
 def method4_phases(card: str, rgb: np.ndarray) -> list:
@@ -734,11 +802,14 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     variants = {"per_image_mats": (iq, ib, qq, lt),
                 "shared_mats": (*shared, lt),
                 "per_image_rates": (iq, ib, qq, lt_img)}
+    csorted, gsorted = sorted_by_search_work(cinter, group, *shared[:2])
     errs = {}
-    for name, (a, b, q, r) in variants.items():
-        got = trellis.trellis_quantize(cinter, a, b, q, group, r, BATCH)
-        want = trellis.trellis_quantize_plain(cinter, a, b, q, group, r,
-                                              BATCH)
+    for name, (a, b, q, r) in [*variants.items(),
+                               ("sorted_rows", variants["shared_mats"])]:
+        rows, grp = ((csorted, gsorted) if name == "sorted_rows"
+                     else (cinter, group))
+        got = trellis.trellis_quantize(rows, a, b, q, grp, r, BATCH)
+        want = trellis.trellis_quantize_plain(rows, a, b, q, grp, r, BATCH)
         torch.cuda.synchronize()
         errs[name] = max_err([(got, want)])
         del got, want
@@ -820,8 +891,8 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     tr_fn = kernels.function("trellis", "sjpeg_trellis", trellis._ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def launch_trellis(a, b, q, r, coeffs=cinter):
-        kernels.check(tr_fn(coeffs.data_ptr(), group.data_ptr(),
+    def launch_trellis(a, b, q, r, coeffs=cinter, grp=group):
+        kernels.check(tr_fn(coeffs.data_ptr(), grp.data_ptr(),
                             a.data_ptr(), b.data_ptr(), q.data_ptr(),
                             r.data_ptr(), levels.data_ptr(), n, n // BATCH,
                             1 if a.dim() == 2 else BATCH,
@@ -834,6 +905,10 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     tr_ms["zero_blocks"] = event_ms(lambda: launch_trellis(
         *variants["per_image_mats"], coeffs=zeros), 20)
     del zeros
+    # against shared_mats: the same work without divergence across a warp
+    tr_ms["sorted_rows"] = event_ms(lambda: launch_trellis(
+        *variants["shared_mats"], coeffs=csorted, grp=gsorted), 20)
+    del csorted, gsorted
     tr_plain_ms = event_ms(lambda: trellis.trellis_quantize_plain(
         cinter, iq, ib, qq, group, lt, BATCH), 3)
     e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 5)

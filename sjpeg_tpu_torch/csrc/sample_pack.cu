@@ -23,8 +23,13 @@
 // to 65 words, block_rows.cuh: no bank conflicts when each thread walks its
 // own row), runs the per-block core of block_core.cuh with the block in
 // registers, and writes its stream words into the same shared rows before
-// the coalesced store.  Serial emission per thread diverges across a warp; that is the
-// first thing a faster version changes (a warp per block, ballot and scan).
+// the coalesced store.  Serial emission per thread diverges across a warp:
+// emit_block steps over all 63 positions, zero or not.  Measured on the
+// H100 (PERF.md), a warp per block (ballots, a scan and an atomicOr
+// scatter) is no faster: it issues some 150 warp instructions a block,
+// where 32 threads on 32 blocks share every instruction; a thread that
+// walks only its block's coded positions takes about half the time and is
+// the next design (ROADMAP S2).
 // Tables: the shared-table instance stages the one set; the per-image
 // instance stages the sets of the (at most two) images its 128 rows span,
 // as vlc_pack.cu does, 39,680 B of static shared memory in all, and a CTA

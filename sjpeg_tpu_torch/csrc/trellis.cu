@@ -22,7 +22,12 @@
 // quantizer and rate-table sets of the (at most two) images a CTA's rows
 // span are staged in shared memory, and a CTA spanning more images (images
 // under 128 blocks) reads its rows' sets from global memory.  Each thread
-// keeps its <= 127 nodes (8 bytes each) in local memory.
+// keeps its <= 127 nodes (8 bytes each) in local memory.  Measured on the
+// H100 (PERF.md): divergence leads, since the same rows sorted by search
+// work take about half the time; a warp per block (lanes over nodes,
+// shuffle reductions) issues more instructions than it saves and is no
+// faster; a thread per block over its coded positions only, on rows
+// ranked by work within the CTA, comes near half (ROADMAP S1).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

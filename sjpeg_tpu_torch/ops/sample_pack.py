@@ -6,7 +6,8 @@ and sample_vlc_pack_pallas, shared tables and per-image tables
 (`tiles_per_img`; source and design notes in csrc/sample_pack.cu).
 `sample_pack` launches the CUDA kernel for CUDA tensors and runs
 `sample_pack_plain`, the plain fDCT followed by quant_pack's plain version,
-for CPU tensors.
+for CPU tensors.  The kernel runs each block on one thread: its fDCT, then
+the serial emission over all 63 positions.
 """
 
 import ctypes

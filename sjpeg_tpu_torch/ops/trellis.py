@@ -5,7 +5,10 @@ tables.
 Replaces sjpeg_tpu/ops/pallas_trellis.py trellis_quantize_pallas (source
 and design notes in csrc/trellis.cu, whose per-block search lives in
 csrc/trellis_core.cuh).  `trellis_quantize` launches the CUDA kernel for
-CUDA tensors and runs `trellis_quantize_plain` for CPU tensors.
+CUDA tensors and runs `trellis_quantize_plain` for CPU tensors.  The kernel
+runs each block's search on one thread; `row_evaluations` counts each
+block's share of the search, by which rows can be sorted to measure the
+warp divergence.
 
 The plain version is the torch twin of sjpeg_tpu/ops/trellis.py
 trellis_quantize_blocks_jax: the reference's per-block node search
@@ -167,17 +170,17 @@ def trellis_quantize_plain(cinter, iquant, ibias, quant, group, lt_lens,
     return out
 
 
-def search_evaluations(cinter, iquant, ibias, group,
-                       n_images: int = 1) -> int:
-    """The (candidate, predecessor) scores the node search evaluates on
-    these blocks: at zigzag position i each opened candidate searches the
-    sink and every candidate opened before i.  Exact when every candidate
-    finds a score below 0xFFFFFFFF, which is what makes it a node.  Sets
-    the operation count of the kernel's bound."""
+def row_evaluations(cinter, iquant, ibias, group,
+                    n_images: int = 1) -> torch.Tensor:
+    """[N] int64: the (candidate, predecessor) scores the node search
+    evaluates on each block: at zigzag position i each opened candidate
+    searches the sink and every candidate opened before i.  Exact when
+    every candidate finds a score below 0xFFFFFFFF, which is what makes it
+    a node."""
     n = cinter.shape[0]
     dev = cinter.device
     zz = torch.as_tensor(C.ZIGZAG[1:], dtype=torch.int64, device=dev)
-    total = 0
+    out = torch.empty((n,), dtype=torch.int64, device=dev)
     for s in range(0, n, _CHUNK):
         e = min(n, s + _CHUNK)
         g, img = group[s:e], _images(s, e, max(n // n_images, 1), dev)
@@ -185,8 +188,15 @@ def search_evaluations(cinter, iquant, ibias, group,
         v0 = _bias_quantized(cinter[s:e, zz].to(torch.int64).abs(), iq, ib)
         opened = (v0 > 0).to(torch.int64) + (v0 > 1).to(torch.int64)
         before = 1 + torch.cumsum(opened, dim=1) - opened
-        total += int((before * opened).sum())
-    return total
+        out[s:e] = (before * opened).sum(1)
+    return out
+
+
+def search_evaluations(cinter, iquant, ibias, group,
+                       n_images: int = 1) -> int:
+    """The scores the node search evaluates on these blocks, summed over
+    `row_evaluations`.  Sets the operation count of the kernel's bound."""
+    return int(row_evaluations(cinter, iquant, ibias, group, n_images).sum())
 
 
 def _sets(t: torch.Tensor, tail) -> int:

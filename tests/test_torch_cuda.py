@@ -250,6 +250,74 @@ def test_sample_pack_per_image_matches_plain_on_gpu(n_images, per_img,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_img", [20, 127])
+@pytest.mark.parametrize("sets", ["shared", "both"])
+def test_trellis_small_images_and_full_rows_on_gpu(per_img, sets):
+    """trellis_quantize == its plain version over images of 20 blocks
+    (seven matrix and rate-table sets in one CTA's 128 rows) and of 127,
+    on rows with every AC position coded among all-zero, flat and
+    full-range rows."""
+    _need_cuda()
+    n_images = 16
+    args = list(_trellis_inputs(n_images, per_img, sets == "both",
+                                sets == "both", 29))
+    rng = np.random.RandomState(30)
+    n = n_images * per_img
+    full = rng.randint(3000, 16385, (n, 64)) * rng.choice([-1, 1], (n, 64))
+    args[0][::4] = torch.from_numpy(full[::4]).to("cuda", torch.int32)
+    got = trellis.trellis_quantize(*args, n_images=n_images)
+    want = trellis.trellis_quantize_plain(*args, n_images=n_images)
+    assert torch.equal(got, want)
+    assert (got[::4, 1:] != 0).sum(1).max() > 40
+
+
+def _full_piece_luts(rng):
+    """[2, 16] DC and [2, 256] AC LUTs whose every piece is 32 bits (code
+    lengths 32 - size): a block with every position coded fills all
+    2,048 bits of its word row, the longest stream there is (at most 64
+    pieces of at most 32 bits)."""
+    size = np.arange(256) & 15
+    dcl = (rng.randint(0, 1 << 16, 16) << 16) | (32 - np.arange(16))
+    acl = (rng.randint(0, 1 << 16, 256) << 16) | (32 - size)
+    return np.stack([dcl, dcl]), np.stack([acl, acl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("luts", ["k3", "full_pieces"])
+def test_sample_pack_longest_streams_on_gpu(per_image, luts):
+    """sample_pack == its plain version on full int16-range samples at
+    q100 (the longest K.3 streams), and with LUTs of 32-bit pieces whose
+    streams fill all 64 words; shared tables, or per-image sets over
+    images of 20 blocks, seven sets in one CTA's 128 rows."""
+    _need_cuda()
+    n_images, per_img = 16, 20
+    n = n_images * per_img
+    rng = np.random.RandomState(31)
+    samples = torch.from_numpy(rng.randint(-32768, 32768, (n, 64))).to(
+        "cuda", torch.int16)
+    dc = vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-2047, 2048, n)).cuda(), n_images)
+    group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32)).cuda()
+    quants = [engine._quant_arrays(engine._quant_matrices(
+        EncoderParam(quality=q))) for q in (100, 95, 90, 85)]
+    lut_arrays = (engine._host_luts(k3_default_tables()) if luts == "k3"
+                  else _full_piece_luts(rng))
+    if per_image:
+        arrays = (*(np.stack([quants[i % 4][k] for i in range(n_images)])
+                    for k in range(2)),
+                  *(np.stack([a] * n_images) for a in lut_arrays))
+    else:
+        arrays = (*quants[0], *lut_arrays)
+    t = state.tables_from_numpy(*arrays, "cuda")
+    words, bits = sample_pack.sample_pack(samples, dc, group, *t)
+    pw, pb = sample_pack.sample_pack_plain(samples, dc, group, *t)
+    assert torch.equal(bits, pb) and torch.equal(words, pw)
+    if luts == "full_pieces":
+        assert int(bits.max()) == 2048
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kw", [
     dict(),                                          # size, device loop
     dict(target_mode=2, target_value=33.0),          # PSNR, device loop

@@ -1,7 +1,8 @@
 """The port's method-0 kernels: their plain PyTorch versions against the
 JAX package (XLA chain and the Pallas kernel in interpret mode), and the
-shared CUDA arithmetic (block_core.cuh: sample_pack's per-block encode
-and the emission half vlc_pack shares) compiled for the host.  Comparisons are exact.
+shared CUDA arithmetic (block_core.cuh: sample_pack's per-block encode,
+quant_pack's quantize and emit, and the emission half vlc_pack shares)
+compiled for the host.  Comparisons are exact.
 The CUDA launches themselves are tested in test_torch_cuda.py."""
 
 import ast
@@ -125,6 +126,16 @@ _HOST_SHIM = """
 #define __host__
 #define __device__
 #include "block_core.cuh"
+extern "C" void quant_emit_blocks(const int32_t* coeffs, const int32_t* dc,
+                                  const int32_t* group, const uint32_t* iq,
+                                  const uint32_t* ib, const uint32_t* dcl,
+                                  const uint32_t* acl, uint32_t* words,
+                                  int32_t* bits, int n) {
+  for (int b = 0; b < n; ++b)
+    bits[b] = sjpeg::quant_emit_block((const uint32_t*)coeffs + 64 * b,
+                                      (uint32_t)dc[b], group[b], iq, ib,
+                                      dcl, acl, words + 64 * b);
+}
 extern "C" void encode_blocks(const int32_t* samples, const int32_t* dc,
                               const int32_t* group, const uint32_t* iq,
                               const uint32_t* ib, const uint32_t* dcl,
@@ -174,7 +185,9 @@ def host_core(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     so.encode_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     so.emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+    so.quant_emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     so.encode_blocks.restype = so.emit_blocks.restype = None
+    so.quant_emit_blocks.restype = None
     return so
 
 
@@ -238,6 +251,85 @@ def test_emit_block_host_build_matches_vlc_pack_plain(host_core, n_sets):
                           bits.ctypes.data, n, per_img, n_sets)
     np.testing.assert_array_equal(bits, want_b.numpy())
     np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
+
+
+def _optimal_luts():
+    """DC and AC LUTs of an optimal table whose skewed (Fibonacci)
+    frequencies push the longest codes to the 16-bit limit; every symbol
+    the blocks can use has a code."""
+    fib = [1, 1]
+    while len(fib) < 40:
+        fib.append(fib[-1] + fib[-2])
+    freq_dc = torch.ones((1, 2, 12), dtype=torch.int32)
+    freq_ac = torch.zeros((1, 2, 256), dtype=torch.int32)
+    syms = [0x00, 0xF0] + [(r << 4) | s for r in range(16)
+                           for s in range(1, 12)]
+    for i, sym in enumerate(syms):
+        freq_ac[0, :, sym] = fib[min(i, 39)] if i < 40 else 1
+    dcl, acl, _, _ = engine.huffman_device.luts_and_desc_from_freqs(freq_dc,
+                                                                    freq_ac)
+    assert int((acl[0] & 0xFF).max()) == 16
+    return dcl[0].numpy(), acl[0].numpy()
+
+
+def _full_luts():
+    """DC and AC LUTs whose every piece is 32 bits (code lengths 32 - size,
+    past the JPEG limit of 16): a block with every position coded, or 62
+    and the EOB, fills all 64 words.  No stream is longer: a block has at
+    most 64 pieces (DC, ZRLs, symbols, EOB) of at most 32 bits."""
+    rng = np.random.RandomState(19)
+    size = np.arange(256) & 15
+    acl = (rng.randint(0, 1 << 16, 256) << 16) | (32 - size)
+    dcl = (rng.randint(0, 1 << 16, 16) << 16) | (32 - np.arange(16))
+    return (np.stack([dcl, dcl]).astype(np.int64),
+            np.stack([acl, acl]).astype(np.int64))
+
+
+@pytest.mark.parametrize("table", ["k3", "optimal", "full"])
+@pytest.mark.parametrize("q", [75, 100])
+def test_quant_emit_block_long_streams_match_quant_pack_plain(host_core,
+                                                              table, q):
+    """quant_emit_block (the serial emit_block over all 63 positions, as
+    sample_pack and quant_pack run it) == the plain quant_pack on 1,200
+    coefficient blocks: zero runs of 16 and more, position 63 coded, and
+    full int16 range rows, the longest streams at q100; with K.3 tables,
+    an optimal table with 16-bit codes, or a table of 32-bit pieces whose
+    streams fill all 2,048 bits of the word row."""
+    n = 1200
+    rng = np.random.RandomState(18)
+    c = rng.randint(-400, 401, (n, 64)) * (rng.rand(n, 64) < 0.3)
+    k = n // 6
+    c[:k] = rng.randint(-32768, 32768, (k, 64))              # full range
+    far = rng.randint(17, 64, k)
+    c[k:2 * k] = 0
+    c[k + np.arange(k), np.asarray(C.ZIGZAG)[far]] = 4000     # runs >= 16
+    c[2 * k:3 * k, 63] = rng.choice([-3000, 3000], k)         # 63 coded
+    c[3 * k:4 * k] = 0                                        # DC only
+    c[3 * k:4 * k, 0] = rng.randint(-900, 900, k)
+    c = c.astype(np.int32)
+    group = rng.randint(0, 2, n).astype(np.int32)
+    dc = engine.vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-2047, 2048, n)), 4).numpy()
+    _, (iq, ib, dcl, acl) = _tables(q)
+    if table == "optimal":
+        dcl, acl = _optimal_luts()
+    elif table == "full":
+        dcl, acl = _full_luts()
+    t = state.tables_from_numpy(iq, ib, dcl, acl, "cpu")
+    tabs = [np.ascontiguousarray(a.numpy()) for a in t]
+    want_w, want_b = engine.quant_pack.quant_pack_plain(
+        *(torch.from_numpy(a) for a in (c, dc, group)), *t)
+
+    words = np.zeros((n, 64), np.uint32)
+    bits = np.zeros(n, np.int32)
+    host_core.quant_emit_blocks(
+        c.ctypes.data, dc.ctypes.data, group.ctypes.data,
+        *(a.ctypes.data for a in tabs), words.ctypes.data, bits.ctypes.data,
+        n)
+    np.testing.assert_array_equal(bits, want_b.numpy())
+    np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
+    if table == "full" and q == 100:
+        assert bits.max() == 2048 and (words[:, 63] != 0).any()
 
 
 def _imports(path: Path):
