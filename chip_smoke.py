@@ -8,11 +8,14 @@ against the plain PyTorch versions on the same card:
 
 - method 0 (K.3 tables), through sample_pack and stream_concat.  Phases:
   probe, build, parity (each kernel vs its plain version at full size),
-  sp_long_streams (sample_pack on the longest streams, shared and
-  per-image tables, three or more sets a CTA), main_path (launch counts,
-  bytes vs the plain-forced path), cases (4:4:4, 4:0:0, 1000 x 750, a
-  bucket overflow, GPU vs CPU path), timing (CUDA events and host clock),
-  breakdown (host clock per stage);
+  sc_edges (stream_concat on one 12-MP image, images shorter than a scan
+  chunk, an overflow past the bucket, empty and 2,048-bit blocks),
+  sp_long_streams (sample_pack and vlc_pack on the longest streams,
+  shared and per-image tables, three or more sets a CTA), main_path
+  (launch counts, bytes vs the plain-forced path), cases (4:4:4, 4:0:0,
+  1000 x 750, a bucket overflow, GPU vs CPU path), timing (CUDA events and
+  host clock; the kernels of one stream_concat op from a torch.profiler
+  trace), breakdown (host clock per stage);
 - method 4 (adaptive quantization + per-image optimal Huffman tables),
   through merge_codesizes, vlc_pack and stream_concat.  Phases: m4_parity,
   m4_path, m4_cases (methods 1 and 3, shared statistics, 4:4:4, 4:0:0,
@@ -50,6 +53,7 @@ exits non-zero; without CUDA it exits 1 before printing any result.
 
 import contextlib
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -208,6 +212,28 @@ def event_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_kernels(fn, calls: int = 1) -> dict:
+    """{name: {"launches": n, "us": t}} a call, for each kernel or memset
+    that `calls` calls of fn ran on the card, from a torch.profiler trace
+    taken after one untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            out[ev.key] = {"launches": ev.count / calls, "us": us / calls}
+    return out
+
+
 def host_ms(fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -291,11 +317,21 @@ def main() -> int:
          sample_pack_max_abs_err=err1, stream_concat_max_abs_err=err2,
          total_bits=int(totals.long().sum()))
     need(err2 == 0, "stream_concat bit-exact against its plain version")
+    edge_errs, edge_info = stream_concat_edges(dev)
+    emit("sc_edges", max_abs_err=edge_errs, **edge_info)
+    err2 = max(err2, *edge_errs.values())
+    need(err2 == 0, "stream_concat bit-exact at its edges")
     long_errs, long_bits = long_stream_parity(dev)
     emit("sp_long_streams", max_abs_err=long_errs, max_bits=long_bits)
-    err1 = max(err1, *long_errs.values())
+    err1 = max(err1, *(v for k, v in long_errs.items()
+                       if k.startswith("sample_pack")))
+    vlc_long_err = max(v for k, v in long_errs.items()
+                       if k.startswith("vlc_pack"))
     need(err1 == 0, "sample_pack bit-exact against its plain version")
-    need(long_bits["full_pieces_shared"] == 2048, "a block fills its row")
+    need(vlc_long_err == 0, "vlc_pack bit-exact on the longest streams")
+    need(long_bits["sample_pack/full_pieces_shared"] == 2048
+         and long_bits["vlc_pack/full_pieces_shared"] == 2048,
+         "a block fills its row")
     need(int(totals.max()) <= bucket * 32, "config 1 fits its bucket")
 
     # ---- 4. main path ---------------------------------------------------
@@ -351,10 +387,9 @@ def main() -> int:
     # ---- 5. timing ------------------------------------------------------
     sp_fn = kernels.function("sample_pack", "sjpeg_sample_pack",
                              sample_pack._ARGTYPES)
-    sc_fn = kernels.function("stream_concat", "sjpeg_stream_concat",
+    sc_fn = kernels.function("stream_concat", "sjpeg_stream_concat_scan",
                              stream_concat._ARGTYPES)
-    lens = bits.long().reshape(BATCH, -1)
-    offs = (torch.cumsum(lens, 1) - lens).reshape(-1)
+    sc_bufs = stream_concat.scratch(BATCH, n // BATCH, bucket, dev)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch_sample_pack():
@@ -364,13 +399,22 @@ def main() -> int:
                             words.data_ptr(), bits.data_ptr(), n, n, 1,
                             stream), "sample_pack")
 
-    def launch_stream_concat():
-        kernels.check(sc_fn(words.data_ptr(), bits.data_ptr(),
-                            offs.data_ptr(), out.data_ptr(), n, n // BATCH,
-                            bucket, stream), "stream_concat")
+    def launch_stream_concat():     # the two launches, without the memset
+        stream_concat.launch(sc_fn, words, bits, *sc_bufs)
+
+    def stream_concat_op():
+        return stream_concat.stream_concat(words, bits, BATCH, bucket)
 
     sp_ms = event_ms(launch_sample_pack, 20)
     sc_ms = event_ms(launch_stream_concat, 20)
+    sc_op_ms = event_ms(stream_concat_op, 20)
+    # the kernels that one op launches, from torch.profiler's trace
+    sc_names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        (kernels.CSRC / "stream_concat.cu").read_text())
+    sc_trace = device_kernels(stream_concat_op)
+    sc_kernel_launches = sum(v["launches"] for k, v in sc_trace.items()
+                             if any(nm in k for nm in sc_names))
     sp_plain_ms = event_ms(lambda: sample_pack.sample_pack_plain(
         sinter, dc, group, *tables), 3)
     sc_plain_ms = event_ms(lambda: stream_concat.stream_concat_plain(
@@ -379,7 +423,9 @@ def main() -> int:
     mpx = BATCH * HEIGHT * WIDTH / 1e6
     emit("timing", gpu=card, sample_pack_ms=sp_ms,
          sample_pack_plain_ms=sp_plain_ms, stream_concat_ms=sc_ms,
-         stream_concat_plain_ms=sc_plain_ms, encode_batch_ms=e2e_ms,
+         stream_concat_op_ms=sc_op_ms, stream_concat_plain_ms=sc_plain_ms,
+         stream_concat_op_device_kernels=sc_trace,
+         encode_batch_ms=e2e_ms,
          encode_batch_mpx_per_s=mpx / (e2e_ms / 1e3), megapixels=mpx)
 
     # ---- breakdown of one encode_batch, host clock, synchronised --------
@@ -421,8 +467,13 @@ def main() -> int:
     # 32-bit operations: ~1,250 for the fDCT, ~7 per coefficient to
     # quantize and test, ~20 per coded coefficient to code and pack
     sp_ops = n * (1250 + 63 * 7) + ac_nonzero * 20
-    sc_bytes = used_words * 4 + 12 * n + BATCH * bucket * 4
-    sc_ops = used_words * 12
+    # stream_concat, the whole op: the used words and the counts read once,
+    # the zeroed output and the totals written once, the chunk sums written
+    # and read; ~8 operations a used word to join and store it, ~20 a block
+    # to scan and place
+    sc_bytes = (used_words * 4 + 4 * n + BATCH * bucket * 4 + 4 * BATCH
+                + 8 * sc_bufs[1].numel())
+    sc_ops = used_words * 8 + n * 20
     rows = [
         kernel_row("sample_pack", "sjpeg_tpu_torch/csrc/sample_pack.cu",
                    "sjpeg_tpu/ops/pallas_quant_pack.py:340",
@@ -430,11 +481,13 @@ def main() -> int:
                    sp_bytes, sp_ops),
         kernel_row("stream_concat", "sjpeg_tpu_torch/csrc/stream_concat.cu",
                    "sjpeg_tpu/ops/pallas_tree_concat.py:371",
-                   launches["stream_concat"], err2, sc_ms, sc_plain_ms,
-                   sc_bytes, sc_ops)]
+                   launches["stream_concat"], err2, sc_op_ms, sc_plain_ms,
+                   sc_bytes, sc_ops, kernel_ms=sc_ms,
+                   kernel_launches_per_op=sc_kernel_launches,
+                   redesigned=True)]
     del words, bits, pwords, pbits, out, pout, sinter, blocks, src
     torch.cuda.empty_cache()
-    rows += method4_phases(card, rgb)
+    rows += method4_phases(card, rgb, vlc_long_err)
     torch.cuda.empty_cache()
     rows += trellis_phases(card, rgb)
     torch.cuda.empty_cache()
@@ -454,18 +507,20 @@ def main() -> int:
 
 
 def long_stream_parity(dev):
-    """sample_pack against its plain version on the longest streams:
-    full int16-range samples at q100 with the K.3 tables, and with LUTs
-    whose every piece is 32 bits (code lengths 32 - size), where a block
-    with every position coded fills all 2,048 bits of its word row (no
-    stream is longer: at most 64 pieces of at most 32 bits); shared
+    """sample_pack and vlc_pack against their plain versions on the
+    longest streams: full int16-range samples at q100 with the K.3 tables,
+    and LUTs whose every piece is 32 bits (code lengths 32 - size), where a
+    block with every position coded fills all 2,048 bits of its word row
+    (no stream is longer: at most 64 pieces of at most 32 bits);
+    vlc_pack also on runs longer than the positions they skip, whose ZRLs
+    carry its in-place stream past fields still to be read.  Shared
     tables, and per-image sets over images of 48 blocks, so that a CTA's
-    128 rows span three or four sets.  Returns ({case: max abs error},
-    {case: the longest stream in bits})."""
+    128 rows span three or four sets.  Returns ({kernel/case: max abs
+    error}, {kernel/case: the longest stream in bits})."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, state
     from sjpeg_tpu_torch.huffman import k3_default_tables
-    from sjpeg_tpu_torch.ops import sample_pack, vlc
+    from sjpeg_tpu_torch.ops import sample_pack, vlc, vlc_pack
 
     rng = np.random.RandomState(SEED + 500)
     n_img, per_img = 64, 48
@@ -483,6 +538,13 @@ def long_stream_parity(dev):
                       | (32 - np.arange(16))] * 2),
             np.stack([(rng.randint(0, 1 << 16, 256) << 16) | (32 - size)]
                      * 2))
+    # vlc_pack's fields: every position coded in a third of the rows
+    q = rng.randint(-2047, 2048, (n, 64)) * (rng.rand(n, 64) < 0.5)
+    q[::3] = rng.choice([-1, 1], (len(q[::3]), 64)) * rng.randint(
+        1, 2048, (len(q[::3]), 64))
+    rl = vlc.run_levels(torch.from_numpy(q).to(dev), torch.int32)
+    long_runs = torch.where(rl["size"] > 0, torch.from_numpy(
+        rng.randint(0, 64, (n, 64)).astype(np.int32)).to(dev), 0)
     errs, longest = {}, {}
     for lut_name, luts in (("k3", engine._host_luts(k3_default_tables())),
                            ("full_pieces", full)):
@@ -494,12 +556,72 @@ def long_stream_parity(dev):
                             for k in range(2)),
                           *(np.stack([a] * n_img) for a in luts))
             t = state.tables_from_numpy(*arrays, dev)
+            runs = [("", rl["run"])]
+            if lut_name == "full_pieces":
+                runs.append(("_long_runs", long_runs))
+            for suffix, run in runs:
+                args = (run, rl["size"], rl["code"], dc, group, *t[2:])
+                got = vlc_pack.vlc_pack(*args)
+                want = vlc_pack.vlc_pack_plain(*args)
+                torch.cuda.synchronize()
+                key = f"vlc_pack/{lut_name}_{sets}{suffix}"
+                errs[key] = max_err(zip(got, want))
+                longest[key] = int(got[1].max())
             got = sample_pack.sample_pack(samples, dc, group, *t)
             want = sample_pack.sample_pack_plain(samples, dc, group, *t)
             torch.cuda.synchronize()
-            errs[f"{lut_name}_{sets}"] = max_err(zip(got, want))
-            longest[f"{lut_name}_{sets}"] = int(got[1].max())
+            errs[f"sample_pack/{lut_name}_{sets}"] = max_err(zip(got, want))
+            longest[f"sample_pack/{lut_name}_{sets}"] = int(got[1].max())
     return errs, longest
+
+
+def random_streams(rng, lens):
+    """[N, 64] int32 words of random bits left-aligned per block, zero past
+    each block's count `lens` [N]."""
+    words = rng.randint(0, 1 << 32, (len(lens), 64), dtype=np.uint64)
+    keep = np.clip(lens[:, None] - 32 * np.arange(64)[None, :], 0,
+                   32).astype(np.uint64)
+    one = np.uint64(1)
+    mask = ((one << keep) - one) << (np.uint64(32) - keep)
+    return (words & mask).astype(np.uint32).view(np.int32)
+
+
+def stream_concat_edges(dev):
+    """stream_concat against its plain version where its scan and its
+    placement meet their edges: one 4032 x 3024 4:2:0 image (285,768
+    blocks, 1,117 chunks in one image, at the single-image bucket of 64
+    words a block), images of 48 blocks (shorter than a chunk), totals past
+    the bucket, all-empty blocks, and 2,048-bit rows.  Block lengths mix
+    empty, short and full streams.  Returns ({case: max abs error},
+    {"cases": {case: [images, blocks an image, bucket, largest total]}})."""
+    from sjpeg_tpu_torch.ops import stream_concat
+
+    rng = np.random.RandomState(SEED + 800)
+    errs, info = {}, {}
+    for name, n_img, per_img, bucket in [
+            ("one_image_4032x3024", 1, 285_768, 285_768 * 64),
+            ("images_of_48", 64, 48, 4096),
+            ("overflow", 4, 700, 64),
+            ("all_empty", 8, 700, 4096),
+            ("full_rows", 3, 700, 700 * 64)]:
+        n = n_img * per_img
+        lens = rng.randint(0, 400, n)
+        lens[rng.rand(n) < 0.2] = 0
+        lens[rng.rand(n) < 0.02] = 2048
+        if name == "all_empty":
+            lens[:] = 0
+        elif name == "full_rows":
+            lens[:] = 2048
+        words = torch.from_numpy(random_streams(rng, lens)).to(dev)
+        bits = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        got = stream_concat.stream_concat(words, bits, n_img, bucket)
+        want = stream_concat.stream_concat_plain(words, bits, n_img, bucket)
+        torch.cuda.synchronize()
+        errs[name] = max_err(zip(got, want))
+        info[name] = [n_img, per_img, bucket, int(want[1].max())]
+        del words, bits, got, want
+    need(info["overflow"][3] > 64 * 32, "the overflow case passes its bucket")
+    return errs, {"cases": info}
 
 
 def sorted_by_search_work(cinter, group, iquant, ibias):
@@ -515,13 +637,52 @@ def sorted_by_search_work(cinter, group, iquant, ibias):
     return cinter[order].contiguous(), group[order].contiguous()
 
 
-def method4_phases(card: str, rgb: np.ndarray) -> list:
+def method4_inputs(rgb: np.ndarray):
+    """The method-4 batch's vlc_pack arguments and merge states, as its
+    encode_batch stages them: (fields: run, size, code, DC codes, groups;
+    its per-image DC and AC LUTs; the K.3 LUTs; the arguments of each
+    merge_codesizes launch)."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, pipeline, state
+    from sjpeg_tpu_torch.huffman import k3_default_tables
+    from sjpeg_tpu_torch.ops import huffman_device, merge_codesizes
+    from sjpeg_tpu_torch.params import method_flags
+
+    dev = torch.device(DEVICE)
+    b, h, w = rgb.shape[:3]
+    param = method4(C.YUV_420)
+    nb = tuple(pipeline.component_layout(C.YUV_420, w, h).nb_blocks)
+    merge_states = []
+
+    def record(*args):
+        merge_states.append(args)
+        return merge_codesizes.merge_codesizes(*args)
+
+    src = torch.from_numpy(rgb).to(dev)
+    coeffs, histos = engine._stage_batch_coeffs(src, "rgb", C.YUV_420, w, h,
+                                                True, b)
+    _, quant = engine._fit_quantizers(histos, param, 2, b, False)
+    iq, ib = state.arrays_to_device(*quant, device=dev)
+    vlc_state, freqs = engine._stage_batch_quantize(coeffs, iq, ib, True, nb,
+                                                    b, b)
+    del coeffs, src
+    with mock.patch.object(huffman_device, "merge_codesizes", record):
+        dcl, acl, _, _ = engine._stage_tables(
+            freqs, method_flags(param.method), 2, b, False, dev)
+    k3 = state.arrays_to_device(*engine._host_luts(k3_default_tables()),
+                                device=dev)
+    rl, dc, group = vlc_state
+    fields = (rl["run"], rl["size"], rl["code"], dc, group)
+    return fields, (dcl, acl), k3, merge_states
+
+
+def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     """The method-4 path on the same batch: m4_parity, m4_path, m4_cases,
-    m4_timing and m4_breakdown; returns the kernel rows of vlc_pack and
+    m4_timing and m4_breakdown; returns the kernel rows of vlc_pack (its
+    error including sp_long_streams' vlc_pack cases, vlc_long_err) and
     merge_codesizes."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, pipeline, state
-    from sjpeg_tpu_torch.huffman import k3_default_tables
     from sjpeg_tpu_torch.ops import (huffman_device, merge_codesizes,
                                      sample_pack, stream_concat, vlc_pack)
     from sjpeg_tpu_torch.params import method_flags
@@ -534,28 +695,8 @@ def method4_phases(card: str, rgb: np.ndarray) -> list:
     bucket = engine._bucket(layout, WIDTH, HEIGHT, 4.0)
 
     # ---- m4_parity: the path's own inputs, each kernel vs plain ---------
-    merge_states = []
-
-    def record(*args):
-        merge_states.append(args)
-        return merge_codesizes.merge_codesizes(*args)
-
-    src = torch.from_numpy(rgb).to(dev)
-    coeffs, histos = engine._stage_batch_coeffs(
-        src, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH)
-    _, quant = engine._fit_quantizers(histos, param, 2, BATCH, False)
-    iq, ib = state.arrays_to_device(*quant, device=dev)
-    vlc_state, freqs = engine._stage_batch_quantize(
-        coeffs, iq, ib, True, nb, BATCH, BATCH)
-    del coeffs, src
-    with mock.patch.object(huffman_device, "merge_codesizes", record):
-        dcl, acl, _, _ = engine._stage_tables(freqs, flags, 2, BATCH, False,
-                                              dev)
-    k3_dcl, k3_acl = state.arrays_to_device(
-        *engine._host_luts(k3_default_tables()), device=dev)
-    rl, dc, group = vlc_state
-    fields = (rl["run"], rl["size"], rl["code"], dc, group)
-    n = dc.shape[0]
+    fields, (dcl, acl), (k3_dcl, k3_acl), merge_states = method4_inputs(rgb)
+    n = fields[3].shape[0]
 
     words, bits = vlc_pack.vlc_pack(*fields, dcl, acl)
     pwords, pbits = vlc_pack.vlc_pack_plain(*fields, dcl, acl)
@@ -729,18 +870,17 @@ def method4_phases(card: str, rgb: np.ndarray) -> list:
          fetched_words=int(wn.size))
 
     # ---- kernel rows ----------------------------------------------------
-    size = rl["size"]
-    coded = (size[:, 1:] > 0)
+    coded = (fields[1][:, 1:] > 0)
     n_coded = int(coded.sum())
-    n_zrl = int(torch.where(coded, rl["run"][:, 1:] >> 4, 0).sum())
+    n_zrl = int(torch.where(coded, fields[0][:, 1:] >> 4, 0).sum())
     lut_bytes = 4 * (dcl.numel() + acl.numel())
     # each input read once (three [N, 64] int32 fields, DC codes, groups,
     # the per-image LUTs), each output written once (64 words, 1 count)
     vp_bytes = 3 * 4 * n * 64 + 8 * n + lut_bytes + 4 * n * 64 + 4 * n
-    # 32-bit operations: ~6 per position to unpack and test the fields,
-    # ~20 per coded coefficient and ~8 per ZRL to look up and pack, ~30 a
-    # block for the DC code, EOB and flush
-    vp_ops = n * (64 * 6 + 30) + n_coded * 20 + n_zrl * 8
+    # 32-bit operations: ~4 per position to stage the fields and their
+    # mask, ~20 per coded coefficient and ~8 per ZRL to look up and pack,
+    # ~30 a block for the DC code, EOB and flush
+    vp_ops = n * (64 * 4 + 30) + n_coded * 20 + n_zrl * 8
     mc_bytes = mc_ops = 0
     for freqw, _, _, _, nleft, steps in merge_states:
         g, w = freqw.shape
@@ -751,8 +891,10 @@ def method4_phases(card: str, rgb: np.ndarray) -> list:
     return [
         kernel_row("vlc_pack", "sjpeg_tpu_torch/csrc/vlc_pack.cu",
                    "sjpeg_tpu/ops/pallas_vlc_pack.py:534",
-                   launches["vlc_pack"], max(err_sets, err_shared), vp_ms,
-                   vp_plain_ms, vp_bytes, vp_ops, shared_ms=vp_shared_ms),
+                   launches["vlc_pack"],
+                   max(err_sets, err_shared, vlc_long_err), vp_ms,
+                   vp_plain_ms, vp_bytes, vp_ops, shared_ms=vp_shared_ms,
+                   coded_positions=n_coded, redesigned=True),
         kernel_row("merge_codesizes", "sjpeg_tpu_torch/csrc/merge_codesizes.cu",
                    "sjpeg_tpu/ops/huffman_device.py:101",
                    launches["merge_codesizes"], max(err_merge), sum(mc_ms),

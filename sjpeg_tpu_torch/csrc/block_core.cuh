@@ -5,10 +5,12 @@
 // Every function is __host__ __device__ so the same code builds with nvcc
 // for the kernels (fdct.cu, quant_pack.cu, sample_pack.cu, vlc_pack.cu) and
 // with a host compiler for tests, which supply their own empty
-// __host__/__device__ definitions.  The emission half, emit_block, is
-// shared: quant_emit_block feeds it the fields it derives from quantized
-// coefficients (quant_pack, and sample_pack after fdct_block), vlc_pack the
-// fields it is given; fdct runs fdct_block alone.
+// __host__/__device__ definitions.  The emission half has two walks over
+// one BitSink (DC piece, AC piece, flush): emit_block visits all 63
+// positions, and quant_emit_block feeds it the fields it derives from
+// quantized coefficients (quant_pack, and sample_pack after fdct_block);
+// emit_coded visits only the coded positions of a mask, and vlc_pack feeds
+// it the fields it is given.  fdct runs fdct_block alone.
 //
 // Bit-exact contract: the result equals the port's plain PyTorch chain
 // ops/fdct.fdct_blocks_plain -> ops/quantize ->
@@ -169,7 +171,45 @@ struct BitSink {
     }
   }
   SJ_HD void put_packed(uint32_t packed) { put(packed >> 16, packed & 0xFFu); }
+
+  // The DC piece: the code (n | suffix << 4) coded with the packed
+  // (code << 16 | len) DC LUT row dc_lut[16], then the n suffix bits.
+  SJ_HD void put_dc(uint32_t dc_code, const uint32_t* dc_lut) {
+    const uint32_t dc_len = dc_code & 0x0Fu;
+    const uint32_t dc_packed = dc_lut[dc_len];
+    put(((dc_packed >> 16) << dc_len) | (dc_code >> 4),
+        (dc_packed & 0xFFu) + dc_len);
+  }
+
+  // The AC piece of one coded position: ZRL escapes (esc = ac_lut[0xF0])
+  // while run >= 16, then the (run, size) symbol of the AC LUT row
+  // ac_lut[256] and the size suffix bits `code`.
+  SJ_HD void put_ac(uint32_t esc, const uint32_t* ac_lut, uint32_t run,
+                    uint32_t size, uint32_t code) {
+    for (; run >= 16u; run -= 16u) put_packed(esc);
+    const uint32_t sym = ac_lut[(run << 4) | size];
+    put(((sym >> 16) << size) | code, (sym & 0xFFu) + size);
+  }
+
+  // Flushes the pending bits, zeroes the slot past the stream and returns
+  // the exact bit count.
+  SJ_HD int finish() {
+    const int total = 32 * nwords + nacc;
+    if (nacc > 0 && nwords < kWordsPerBlock)
+      out[nwords++] = (uint32_t)(acc << (32 - nacc));
+    for (int w = nwords; w < kWordsPerBlock; ++w) out[w] = 0u;
+    return total;
+  }
 };
+
+// Index of the lowest set bit of a nonzero mask.
+SJ_HD int lowest_bit(uint64_t m) {
+#ifdef __CUDA_ARCH__
+  return __ffsll((long long)m) - 1;
+#else
+  return __builtin_ctzll(m);
+#endif
+}
 
 // Emission half of one block: the DC code (n | suffix << 4) coded with the
 // packed (code << 16 | len) DC LUT row dc_lut[16], then for zigzag positions
@@ -183,13 +223,7 @@ template <typename Fields>
 SJ_HD int emit_block(uint32_t dc_code, const uint32_t* dc_lut,
                      const uint32_t* ac_lut, Fields&& fields, uint32_t* out) {
   BitSink sink{out, 0, 0, 0};
-
-  // DC: Huffman code of the size category, then the suffix bits
-  const uint32_t dc_len = dc_code & 0x0Fu;
-  const uint32_t dc_packed = dc_lut[dc_len];
-  sink.put(((dc_packed >> 16) << dc_len) | (dc_code >> 4),
-           (dc_packed & 0xFFu) + dc_len);
-
+  sink.put_dc(dc_code, dc_lut);
   const uint32_t esc = ac_lut[0xF0];
   int last = 0;
 #pragma unroll
@@ -198,17 +232,39 @@ SJ_HD int emit_block(uint32_t dc_code, const uint32_t* dc_lut,
     fields(k, run, size, code);
     if (size == 0) continue;
     last = k;
-    for (; run >= 16u; run -= 16u) sink.put_packed(esc);   // ZRL
-    const uint32_t sym = ac_lut[(run << 4) | size];
-    sink.put(((sym >> 16) << size) | code, (sym & 0xFFu) + size);
+    sink.put_ac(esc, ac_lut, run, size, code);
   }
-  if (last < 63) sink.put_packed(ac_lut[0x00]);              // EOB
+  if (last < 63) sink.put_packed(ac_lut[0x00]);               // EOB
+  return sink.finish();
+}
 
-  const int total = 32 * sink.nwords + sink.nacc;
-  if (sink.nacc > 0 && sink.nwords < kWordsPerBlock)
-    out[sink.nwords++] = (uint32_t)(sink.acc << (32 - sink.nacc));
-  for (int w = sink.nwords; w < kWordsPerBlock; ++w) out[w] = 0u;
-  return total;
+// emit_block over the coded positions only: bit k of `mask` is set where
+// position k (1..63; bit 0 is ignored) has a nonzero size.  For each set bit,
+// in order, field(k, in_place) returns that position's packed field
+// run << 21 | size << 16 | code, and its own run, size and code are coded as
+// emit_block codes them, so both give the same words and count.  The stream
+// may be written into the very row that holds the fields (out[k] = field
+// k): `in_place` says whether out[k] still holds it, that is whether fewer
+// than k + 1 words are written.  It always does when each run is at most
+// the count of uncoded positions since the previous coded one, as
+// vlc.run_levels gives them: the DC piece and each AC piece are at most 32
+// bits and every ZRL covers 16 skipped positions, so after coded position k
+// the stream holds at most 32 (k + 1) bits.  Otherwise the caller reads the
+// field from its source.
+template <typename Field>
+SJ_HD int emit_coded(uint32_t dc_code, const uint32_t* dc_lut,
+                     const uint32_t* ac_lut, uint64_t mask, Field&& field,
+                     uint32_t* out) {
+  BitSink sink{out, 0, 0, 0};
+  sink.put_dc(dc_code, dc_lut);
+  const uint32_t esc = ac_lut[0xF0];
+  for (uint64_t m = mask & ~(uint64_t)1; m; m &= m - 1) {
+    const int k = lowest_bit(m);
+    const uint32_t f = field(k, k >= sink.nwords);
+    sink.put_ac(esc, ac_lut, f >> 21, (f >> 16) & 31u, f & 0xFFFFu);
+  }
+  if (!(mask >> 63)) sink.put_packed(ac_lut[0x00]);           // EOB
+  return sink.finish();
 }
 
 // Quantize-and-emit half of one block: raster coefficients x[64] (x16

@@ -66,6 +66,9 @@ def vlc_pack(run, size, code, dc_codes, group, dc_luts, ac_luts):
                 or not t.is_contiguous()):
             raise ValueError("vlc_pack takes contiguous int32 tensors on "
                              "one device")
+    if any(t.data_ptr() % 16 for t in (run, size, code)):
+        raise ValueError("vlc_pack reads run, size and code as int4: they "
+                         "must start 16-byte aligned")
     sets = tuple(dc_luts.shape[:-1])          # (2,) or (B, 2)
     if (any(tuple(t.shape) != (n, 64) for t in (run, size, code))
             or tuple(dc_codes.shape) != (n,) or tuple(group.shape) != (n,)

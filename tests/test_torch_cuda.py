@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import random_streams
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, state
 from sjpeg_tpu_torch.huffman import k3_default_tables, trellis_cost_lens
@@ -101,6 +102,74 @@ def test_vlc_pack_matches_plain_on_gpu(n_images, per_img, per_image):
     words, bits = vlc_pack.vlc_pack(*args)
     pw, pb = vlc_pack.vlc_pack_plain(*args)
     assert torch.equal(bits, pb) and torch.equal(words, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("runs", ["run_levels", "longer"])
+def test_vlc_pack_full_pieces_on_gpu(per_image, runs):
+    """vlc_pack == vlc_pack_plain with LUTs of 32-bit pieces, where rows
+    with every position coded fill all 2,048 bits of the shared row the
+    stream is written over; and with runs longer than the positions they
+    skip, whose ZRLs carry the stream past fields still to be read (read
+    again from global memory).  Shared LUTs, or per-image sets over
+    images of 48 blocks."""
+    _need_cuda()
+    n_images, per_img = 8, 48
+    n = n_images * per_img
+    rng = np.random.RandomState(32)
+    q = rng.randint(-2047, 2048, (n, 64)) * (rng.rand(n, 64) < 0.5)
+    q[::3] = rng.choice([-1, 1], (len(q[::3]), 64)) * rng.randint(
+        1, 2048, (len(q[::3]), 64))
+    rl = vlc.run_levels(torch.from_numpy(q).cuda(), torch.int32)
+    run = rl["run"]
+    if runs == "longer":
+        run = torch.where(rl["size"] > 0, torch.from_numpy(rng.randint(
+            0, 64, (n, 64)).astype(np.int32)).cuda(), 0)
+    dc = vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-2047, 2048, n)).cuda(), n_images)
+    group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32)).cuda()
+    luts = _full_piece_luts(rng)
+    if per_image:
+        luts = tuple(np.stack([a] * n_images) for a in luts)
+    dcl, acl = state.arrays_to_device(*luts, device="cuda")
+    args = (run, rl["size"], rl["code"], dc, group, dcl, acl)
+    words, bits = vlc_pack.vlc_pack(*args)
+    pw, pb = vlc_pack.vlc_pack_plain(*args)
+    assert torch.equal(bits, pb) and torch.equal(words, pw)
+    if runs == "run_levels":
+        assert int(bits.max()) == 2048
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_image_4032x3024", "images_of_48",
+                                  "overflow", "all_empty", "full_rows"])
+def test_stream_concat_edges_on_gpu(case):
+    """stream_concat == stream_concat_plain where its chunked scan and its
+    placement meet their edges: 285,768 blocks in one image (1,117 scan
+    chunks), images shorter than a chunk, totals past the bucket, all
+    blocks empty, every block 2,048 bits; lengths mix empty, short and
+    full streams, so offsets take every residue mod 32."""
+    _need_cuda()
+    n_images, per_img, bucket = {
+        "one_image_4032x3024": (1, 285_768, 285_768 * 64),
+        "images_of_48": (64, 48, 4096), "overflow": (4, 700, 64),
+        "all_empty": (8, 700, 4096), "full_rows": (3, 700, 700 * 64)}[case]
+    n = n_images * per_img
+    rng = np.random.RandomState(33)
+    lens = rng.randint(0, 400, n)
+    lens[rng.rand(n) < 0.2] = 0
+    lens[rng.rand(n) < 0.02] = 2048
+    if case == "all_empty":
+        lens[:] = 0
+    elif case == "full_rows":
+        lens[:] = 2048
+    words = torch.from_numpy(random_streams(rng, lens)).cuda()
+    bits = torch.from_numpy(lens.astype(np.int32)).cuda()
+    out, tot = stream_concat.stream_concat(words, bits, n_images, bucket)
+    po, pt = stream_concat.stream_concat_plain(words, bits, n_images, bucket)
+    assert torch.equal(tot, pt) and torch.equal(out, po)
+    assert (int(pt.max()) > bucket * 32) == (case == "overflow")
 
 
 def _freq_rows(size, width, seed):

@@ -1,12 +1,14 @@
 """The port's method-0 kernels: their plain PyTorch versions against the
 JAX package (XLA chain and the Pallas kernel in interpret mode), and the
-shared CUDA arithmetic (block_core.cuh: sample_pack's per-block encode,
-quant_pack's quantize and emit, and the emission half vlc_pack shares)
-compiled for the host.  Comparisons are exact.
+shared CUDA arithmetic compiled for the host (block_core.cuh: sample_pack's
+per-block encode, quant_pack's quantize and emit, the dense and the
+coded-position emission walks; concat_core.cuh: stream_concat's per-block
+placement).  Comparisons are exact.
 The CUDA launches themselves are tested in test_torch_cuda.py."""
 
 import ast
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,9 +29,11 @@ from sjpeg_tpu.ops import pack as jpack
 from sjpeg_tpu.ops import vlc as jvlc
 from sjpeg_tpu.params import quant_matrices_for_quality as j_qmq
 
+from chip_smoke import random_streams
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, state
-from sjpeg_tpu_torch.ops import colorspace, sample_pack
+from sjpeg_tpu_torch.ops import (colorspace, quantize, sample_pack,
+                                 stream_concat, vlc)
 from sjpeg_tpu_torch.params import TARGET_SIZE, EncoderParam, SearchHook
 
 REPO = Path(__file__).resolve().parents[1]
@@ -126,6 +130,7 @@ _HOST_SHIM = """
 #define __host__
 #define __device__
 #include "block_core.cuh"
+#include "concat_core.cuh"
 extern "C" void quant_emit_blocks(const int32_t* coeffs, const int32_t* dc,
                                   const int32_t* group, const uint32_t* iq,
                                   const uint32_t* ib, const uint32_t* dcl,
@@ -167,6 +172,51 @@ extern "C" void emit_blocks(const int32_t* run, const int32_t* size,
                                 words + row);
   }
 }
+// As vlc_pack's kernel: each row of `words` first holds the packed fields
+// (run << 21 | size << 16 | code), and emit_coded writes the stream over
+// them.  Returns how many fields were read out of place.
+extern "C" int emit_coded_blocks(const int32_t* run, const int32_t* size,
+                                 const int32_t* code, const int32_t* dc,
+                                 const int32_t* group, const uint32_t* dcl,
+                                 const uint32_t* acl, uint32_t* words,
+                                 int32_t* bits, int n, int per_img,
+                                 int n_sets) {
+  int out_of_place = 0;
+  for (int b = 0; b < n; ++b) {
+    const int set = n_sets > 1 ? b / per_img : 0;
+    const int g = group[b] & 1;
+    const int64_t row = 64 * (int64_t)b;
+    uint32_t* w = words + row;
+    auto packed = [&](int k) {
+      return ((uint32_t)run[row + k] << 21) |
+             ((uint32_t)size[row + k] << 16) | (uint32_t)code[row + k];
+    };
+    uint64_t mask = 0;
+    for (int k = 0; k < 64; ++k) {
+      w[k] = packed(k);
+      if (k > 0 && size[row + k] != 0) mask |= (uint64_t)1 << k;
+    }
+    auto field = [&](int k, bool in_place) {
+      out_of_place += !in_place;
+      return in_place ? w[k] : packed(k);
+    };
+    bits[b] = sjpeg::emit_coded((uint32_t)dc[b], dcl + 32 * set + 16 * g,
+                                acl + 512 * set + 256 * g, mask, field, w);
+  }
+  return out_of_place;
+}
+// stream_concat's placement, block by block in the given direction.
+extern "C" void place_blocks(const uint32_t* words, const int32_t* bits,
+                             const int64_t* offs, uint32_t* out, int n,
+                             int per_img, int bucket, int reverse) {
+  for (int j = 0; j < n; ++j) {
+    const int b = reverse ? n - 1 - j : j;
+    if (bits[b] > 0)
+      sjpeg::place_block(words + 64 * (int64_t)b, bits[b], offs[b],
+                         out + (int64_t)(b / per_img) * bucket, bucket,
+                         [](uint32_t* p, uint32_t v) { *p |= v; });
+  }
+}
 """
 
 
@@ -186,9 +236,32 @@ def host_core(tmp_path_factory):
     so.encode_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     so.emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
     so.quant_emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
+    so.emit_coded_blocks.argtypes = so.emit_blocks.argtypes
+    so.place_blocks.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     so.encode_blocks.restype = so.emit_blocks.restype = None
-    so.quant_emit_blocks.restype = None
+    so.quant_emit_blocks.restype = so.place_blocks.restype = None
+    so.emit_coded_blocks.restype = ctypes.c_int
     return so
+
+
+def _emit(host_core, walk, fields, luts, n, per_img, n_sets,
+          in_place=True):
+    """Words and counts of the dense walk (emit_block) or of the coded
+    walk in place (emit_coded) on int32 run, size, code, DC codes and
+    groups with [n_sets, 2, 16] / [n_sets, 2, 256] LUTs; with `in_place`
+    the coded walk must read no field out of place, else it must read
+    some."""
+    words = np.zeros((n, 64), np.uint32)
+    bits = np.zeros(n, np.int32)
+    host = [np.ascontiguousarray(np.asarray(t), np.int32) for t in fields]
+    host += [np.ascontiguousarray(np.asarray(t).astype(np.int64)
+                                  .astype(np.uint32)) for t in luts]
+    fn = host_core.emit_coded_blocks if walk == "coded" else \
+        host_core.emit_blocks
+    out_of_place = fn(*(a.ctypes.data for a in host), words.ctypes.data,
+                      bits.ctypes.data, n, per_img, n_sets)
+    assert walk == "dense" or (out_of_place == 0) == in_place
+    return words, bits
 
 
 @pytest.mark.parametrize("q,lo,hi", [(75, -128, 129), (100, -128, 129),
@@ -222,11 +295,11 @@ def test_block_core_host_build_matches_plain(host_core, q, lo, hi):
     np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
 
 
-@pytest.mark.parametrize("n_sets", [1, 3])
-def test_emit_block_host_build_matches_vlc_pack_plain(host_core, n_sets):
-    """block_core.cuh's emit_block, the emission half that vlc_pack and
-    sample_pack share, == vlc_pack_plain on 3 x 700 random blocks (700 is
-    not a multiple of 128) with long zero runs, shared or per-image LUTs."""
+@functools.lru_cache(maxsize=None)
+def _vlc_case(n_sets):
+    """3 x 700 random blocks (700 is not a multiple of 128) with long zero
+    runs, their fields, shared or per-image LUTs, and vlc_pack_plain's
+    words and counts; computed once for both walks."""
     n, per_img = 2100, 700
     rng = np.random.RandomState(16)
     q = rng.randint(-1500, 1501, (n, 64)) * (rng.rand(n, 64) < 0.2)
@@ -243,12 +316,20 @@ def test_emit_block_host_build_matches_vlc_pack_plain(host_core, n_sets):
         dcl, acl = dcl[0], acl[0]
     fields = (rl["run"], rl["size"], rl["code"], dc, group)
     want_w, want_b = engine.vlc_pack.vlc_pack_plain(*fields, dcl, acl)
+    return fields, (dcl, acl), want_w, want_b
 
-    words = np.zeros((n, 64), np.uint32)
-    bits = np.zeros(n, np.int32)
-    host = [np.ascontiguousarray(t.numpy()) for t in fields + (dcl, acl)]
-    host_core.emit_blocks(*(a.ctypes.data for a in host), words.ctypes.data,
-                          bits.ctypes.data, n, per_img, n_sets)
+
+@pytest.mark.parametrize("walk", ["dense", "coded"])
+@pytest.mark.parametrize("n_sets", [1, 3])
+def test_emit_block_host_build_matches_vlc_pack_plain(host_core, n_sets,
+                                                      walk):
+    """block_core.cuh's emission walks == vlc_pack_plain on 3 x 700 random
+    blocks (700 is not a multiple of 128) with long zero runs, shared or
+    per-image LUTs: emit_block over all 63 positions, as sample_pack and
+    quant_pack run it, and emit_coded over the coded positions only,
+    writing the stream over the packed fields as vlc_pack does."""
+    fields, luts, want_w, want_b = _vlc_case(n_sets)
+    words, bits = _emit(host_core, walk, fields, luts, 2100, 700, n_sets)
     np.testing.assert_array_equal(bits, want_b.numpy())
     np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
 
@@ -285,16 +366,11 @@ def _full_luts():
             np.stack([acl, acl]).astype(np.int64))
 
 
-@pytest.mark.parametrize("table", ["k3", "optimal", "full"])
-@pytest.mark.parametrize("q", [75, 100])
-def test_quant_emit_block_long_streams_match_quant_pack_plain(host_core,
-                                                              table, q):
-    """quant_emit_block (the serial emit_block over all 63 positions, as
-    sample_pack and quant_pack run it) == the plain quant_pack on 1,200
-    coefficient blocks: zero runs of 16 and more, position 63 coded, and
-    full int16 range rows, the longest streams at q100; with K.3 tables,
-    an optimal table with 16-bit codes, or a table of 32-bit pieces whose
-    streams fill all 2,048 bits of the word row."""
+@functools.lru_cache(maxsize=None)
+def _quant_case(table, q):
+    """1,200 coefficient blocks (zero runs of 16 and more, position 63
+    coded, full int16 range rows), DC codes, groups, the tables, and the
+    plain quant_pack's words and counts; computed once for both walks."""
     n = 1200
     rng = np.random.RandomState(18)
     c = rng.randint(-400, 401, (n, 64)) * (rng.rand(n, 64) < 0.3)
@@ -316,20 +392,106 @@ def test_quant_emit_block_long_streams_match_quant_pack_plain(host_core,
     elif table == "full":
         dcl, acl = _full_luts()
     t = state.tables_from_numpy(iq, ib, dcl, acl, "cpu")
-    tabs = [np.ascontiguousarray(a.numpy()) for a in t]
     want_w, want_b = engine.quant_pack.quant_pack_plain(
         *(torch.from_numpy(a) for a in (c, dc, group)), *t)
+    return c, dc, group, t, want_w, want_b
 
-    words = np.zeros((n, 64), np.uint32)
-    bits = np.zeros(n, np.int32)
-    host_core.quant_emit_blocks(
-        c.ctypes.data, dc.ctypes.data, group.ctypes.data,
-        *(a.ctypes.data for a in tabs), words.ctypes.data, bits.ctypes.data,
-        n)
+
+@pytest.mark.parametrize("walk", ["dense", "coded"])
+@pytest.mark.parametrize("table", ["k3", "optimal", "full"])
+@pytest.mark.parametrize("q", [75, 100])
+def test_quant_emit_block_long_streams_match_quant_pack_plain(host_core,
+                                                              table, q,
+                                                              walk):
+    """The emission walks == the plain quant_pack on 1,200 coefficient
+    blocks: zero runs of 16 and more, position 63 coded, and full int16
+    range rows, the longest streams at q100; with K.3 tables, an optimal
+    table with 16-bit codes, or a table of 32-bit pieces whose streams fill
+    all 2,048 bits of the word row.  The dense walk is quant_emit_block
+    (emit_block over all 63 positions, as sample_pack and quant_pack run
+    it); the coded walk is emit_coded in place on the quantized blocks'
+    run/size/code fields, where a row of 64 pieces of 32 bits overwrites
+    every field word, each only after it was read."""
+    c, dc, group, t, want_w, want_b = _quant_case(table, q)
+    n = c.shape[0]
+    tabs = [np.ascontiguousarray(a.numpy()) for a in t]
+    if walk == "coded":
+        g = torch.from_numpy(group).long()
+        rl = vlc.run_levels(quantize.quantize_values(
+            torch.from_numpy(c), t[0].long()[g], t[1].long()[g]),
+            torch.int32)
+        words, bits = _emit(host_core, walk, (rl["run"], rl["size"],
+                                              rl["code"], dc, group),
+                            t[2:], n, n, 1)
+    else:
+        words = np.zeros((n, 64), np.uint32)
+        bits = np.zeros(n, np.int32)
+        host_core.quant_emit_blocks(
+            c.ctypes.data, dc.ctypes.data, group.ctypes.data,
+            *(a.ctypes.data for a in tabs), words.ctypes.data,
+            bits.ctypes.data, n)
     np.testing.assert_array_equal(bits, want_b.numpy())
     np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
     if table == "full" and q == 100:
         assert bits.max() == 2048 and (words[:, 63] != 0).any()
+
+
+def test_emit_coded_reads_overtaken_fields_from_their_source(host_core):
+    """Runs longer than the positions skipped (which vlc.run_levels never
+    gives) with 32-bit pieces: up to three ZRLs a coded position carry the
+    stream past fields still to be read, which emit_coded then reads from
+    their source; both walks still equal vlc_pack_plain."""
+    n = 600
+    rng = np.random.RandomState(22)
+    q = rng.randint(-300, 301, (n, 64)) * (rng.rand(n, 64) < 0.7)
+    rl = vlc.run_levels(torch.from_numpy(q), torch.int32)
+    run = torch.where(rl["size"] > 0, torch.from_numpy(
+        rng.randint(0, 64, (n, 64)).astype(np.int32)), 0)
+    dc = vlc.dc_diff_codes(torch.from_numpy(rng.randint(-900, 900, n)))
+    group = torch.from_numpy(rng.randint(0, 2, n).astype(np.int32))
+    dcl, acl = (torch.from_numpy(a) for a in _full_luts())
+    fields = (run, rl["size"], rl["code"], dc, group)
+    want_w, want_b = engine.vlc_pack.vlc_pack_plain(*fields, dcl, acl)
+    for walk in ("dense", "coded"):
+        words, bits = _emit(host_core, walk, fields, (dcl, acl), n, n, 1,
+                            in_place=False)
+        np.testing.assert_array_equal(bits, want_b.numpy())
+        np.testing.assert_array_equal(words,
+                                      want_w.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("bucket", [64, 4096])
+def test_place_block_host_build_matches_stream_concat_plain(host_core,
+                                                            bucket):
+    """concat_core.cuh's place_block, looped over numpy-scanned offsets in
+    either direction, == stream_concat_plain on 3 images of 700 blocks:
+    empty blocks, 2,048-bit blocks, offsets at every residue mod 32, and
+    images whose totals pass the bucket (words past it dropped)."""
+    n_img, per_img = 3, 700
+    n = n_img * per_img
+    rng = np.random.RandomState(21)
+    lens = rng.randint(0, 200, n)
+    lens[rng.rand(n) < 0.2] = 0                                 # empty
+    lens[rng.rand(n) < 0.02] = 2048                             # full rows
+    lens[:per_img:7] = 2048          # image 0 passes a 4,096-word bucket
+    lens[per_img:per_img + 40] = rng.randint(1, 33, 40)     # short pieces
+    words = random_streams(rng, lens).view(np.uint32)
+    bits = lens.astype(np.int32)
+    offs = (np.cumsum(lens.reshape(n_img, -1), 1)
+            - lens.reshape(n_img, -1)).reshape(-1).astype(np.int64)
+    assert len(np.unique(offs[lens > 0] % 32)) == 32
+    totals = lens.reshape(n_img, -1).sum(1)
+    assert totals.max() > bucket * 32 > totals.min() or bucket == 64
+    want_w, want_t = stream_concat.stream_concat_plain(
+        torch.from_numpy(words.view(np.int32)), torch.from_numpy(bits),
+        n_img, bucket)
+    np.testing.assert_array_equal(want_t.numpy(), totals)
+    for reverse in (0, 1):
+        out = np.zeros((n_img, bucket), np.uint32)
+        host_core.place_blocks(words.ctypes.data, bits.ctypes.data,
+                               offs.ctypes.data,
+                               out.ctypes.data, n, per_img, bucket, reverse)
+        np.testing.assert_array_equal(out, want_w.numpy().view(np.uint32))
 
 
 def _imports(path: Path):
