@@ -10,26 +10,29 @@ against the plain PyTorch versions on the same card:
   probe, build, parity (each kernel vs its plain version at full size),
   sc_edges (stream_concat on one 12-MP image, images shorter than a scan
   chunk, an overflow past the bucket, empty and 2,048-bit blocks),
-  sp_long_streams (sample_pack and vlc_pack on the longest streams,
-  shared and per-image tables, three or more sets a CTA), main_path
+  sp_long_streams (sample_pack, vlc_pack and quant_pack on the longest
+  streams, shared and per-image tables, three or more sets a CTA), main_path
   (launch counts, bytes vs the plain-forced path), cases (4:4:4, 4:0:0,
   1000 x 750, a bucket overflow, GPU vs CPU path), timing (CUDA events and
   host clock; the kernels of one stream_concat op from a torch.profiler
   trace), breakdown (host clock per stage);
 - method 4 (adaptive quantization + per-image optimal Huffman tables),
-  through merge_codesizes, vlc_pack and stream_concat.  Phases: m4_parity,
+  through merge_codesizes (the whole table build, one launch), vlc_pack
+  and stream_concat.  Phases: tables (the table kernel on rows of every
+  kind: ties, the rebalance, one symbol, empty, wrapping sums), m4_parity,
   m4_path, m4_cases (methods 1 and 3, shared statistics, 4:4:4, 4:0:0,
   1000 x 750, NV12, overflow re-packs, GPU vs CPU path), m4_timing,
   m4_breakdown;
 - method 7 (method 4 with trellis quantization), through trellis,
   merge_codesizes, vlc_pack and stream_concat.  Phases: tr_parity (the
   trellis kernel with per-image and shared matrices and per-image rate
-  tables, and on rows sorted by search work), tr_path, tr_cases (shared
+  tables, and on rows sorted by search work; the table kernel on the
+  trellis's frequencies), tr_path, tr_cases (shared
   statistics, 4:4:4, 4:0:0, 1000 x 750, NV12, q40, q90, an overflow
   re-pack, GPU vs CPU path), tr_timing, tr_breakdown;
 - the batched target-size search (method 4, set_target_size(200_000,
   passes=8)), through sample_pack with per-image tables, stream_concat
-  and merge_codesizes once a pass.  Phases: search_parity (the per-image
+  and merge_codesizes (one table build) once a pass.  Phases: search_parity (the per-image
   kernel at 16 x 1024^2, 1000 x 750 and images under 128 blocks),
   search_path (launches, bytes vs the plain-forced path, sizes against the
   target), search_cases (PSNR, passes=10, methods 0, 1 and 7, gray, NV12,
@@ -38,7 +41,8 @@ against the plain PyTorch versions on the same card:
   single-image search, custom search hooks), through the standalone fDCT
   (fdct) and the coefficients-in pack (quant_pack) besides the kernels
   above.  Phases: single_kernels (fdct and quant_pack vs their plain
-  versions at 16 x 1024^2, and their times), single_parity (1000 x 750:
+  versions at 16 x 1024^2, and their times; quant_pack also on the
+  longest streams, in sp_long_streams), single_parity (1000 x 750:
   every entry point, method and search, and a custom hook through
   encode_batch, vs the plain-forced path), single_path and single_timing
   (a 4032 x 3024 12-MP photo: encode_rgb methods 0 and 4, encode_yuv
@@ -46,8 +50,10 @@ against the plain PyTorch versions on the same card:
 - the serving wrappers: serving (encode_pipelined over four 16 x 1024^2
   batches vs encode_batch, and encode_many on mixed shapes vs encode_rgb).
 
-One JSON line each.  Then the `kernels` line, the card's name and power
-limit, and last {"ok": true, "device": {...}}.  Any failure raises and
+One JSON line each.  Then the `kernels` line (each kernel's device
+microseconds a launch from a torch.profiler trace beside its CUDA-event
+times), the card's name and power limit, and last
+{"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without CUDA it exits 1 before printing any result.
 """
 
@@ -155,12 +161,12 @@ def stateful_hook():
 @contextlib.contextmanager
 def plain_forced():
     """Patch the engine's kernel calls with the plain versions (this
-    script only: the package itself never falls back).  fdct and
-    quant_pack are patched on their own modules, which every caller reads
-    them from."""
-    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quant_pack,
-                                     sample_pack, stream_concat, trellis,
-                                     vlc_pack)
+    script only: the package itself never falls back).  fdct, quant_pack
+    and the table build are patched on their own modules, which every
+    caller reads them from."""
+    from sjpeg_tpu_torch.ops import (fdct, huffman_device, merge_codesizes,
+                                     quant_pack, sample_pack, stream_concat,
+                                     trellis, vlc_pack)
     packs = dict(
         sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
         stream_concat=mock.Mock(
@@ -171,12 +177,19 @@ def plain_forced():
                 trellis_quantize=trellis.trellis_quantize_plain),
             vlc_pack=mock.Mock(vlc_pack=vlc_pack.vlc_pack_plain)), \
             mock.patch.multiple("sjpeg_tpu_torch.engine_search", **packs), \
-            mock.patch("sjpeg_tpu_torch.ops.huffman_device.merge_codesizes",
-                       merge_codesizes.merge_codesizes_plain), \
+            mock.patch.object(merge_codesizes, "optimal_tables",
+                              plain_tables), \
             mock.patch.object(fdct, "fdct_blocks", fdct.fdct_blocks_plain), \
             mock.patch.object(quant_pack, "quant_pack",
                               quant_pack.quant_pack_plain):
         yield
+
+
+def plain_tables(jobs):
+    """merge_codesizes.optimal_tables' results from the plain version."""
+    from sjpeg_tpu_torch.ops import huffman_device
+    return [huffman_device.optimal_code_luts_plain(f, size, lut, True)
+            for f, size, lut in jobs]
 
 
 def max_err(pairs) -> int:
@@ -232,6 +245,25 @@ def device_kernels(fn, calls: int = 1) -> dict:
                          getattr(ev, "self_cuda_time_total", 0))
             out[ev.key] = {"launches": ev.count / calls, "us": us / calls}
     return out
+
+
+def global_names(source: str) -> list:
+    """The __global__ functions of csrc/<source>.cu."""
+    from sjpeg_tpu_torch import kernels
+    return re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        (kernels.CSRC / f"{source}.cu").read_text())
+
+
+def kernel_us(fn, source: str, calls: int = 5, trace=None) -> float:
+    """Device microseconds of one launch of each kernel of csrc/<source>.cu
+    that fn runs, summed over those kernels: the mean over the launches
+    that torch.profiler recorded in `calls` calls (or in a device_kernels
+    trace), which may be fewer than the calls made."""
+    names = global_names(source)
+    trace = trace if trace is not None else device_kernels(fn, calls)
+    return sum(v["us"] / v["launches"] for k, v in trace.items()
+               if v["launches"] and any(nm in k for nm in names))
 
 
 def host_ms(fn, reps: int) -> float:
@@ -327,10 +359,14 @@ def main() -> int:
                        if k.startswith("sample_pack")))
     vlc_long_err = max(v for k, v in long_errs.items()
                        if k.startswith("vlc_pack"))
+    qp_long_err = max(v for k, v in long_errs.items()
+                      if k.startswith("quant_pack"))
     need(err1 == 0, "sample_pack bit-exact against its plain version")
     need(vlc_long_err == 0, "vlc_pack bit-exact on the longest streams")
+    need(qp_long_err == 0, "quant_pack bit-exact on the longest streams")
     need(long_bits["sample_pack/full_pieces_shared"] == 2048
-         and long_bits["vlc_pack/full_pieces_shared"] == 2048,
+         and long_bits["vlc_pack/full_pieces_shared"] == 2048
+         and long_bits["quant_pack/full_pieces_shared"] == 2048,
          "a block fills its row")
     need(int(totals.max()) <= bucket * 32, "config 1 fits its bucket")
 
@@ -338,7 +374,7 @@ def main() -> int:
     counted = {"sample_pack": sample_pack.sample_pack,
                "stream_concat": stream_concat.stream_concat,
                "vlc_pack": vlc_pack.vlc_pack,
-               "merge_codesizes": merge_codesizes.merge_codesizes}
+               "merge_codesizes": merge_codesizes.optimal_tables}
     for fn in counted.values():
         fn.launches = 0
     jpegs = engine.encode_batch(rgb, param, device=dev)
@@ -409,9 +445,7 @@ def main() -> int:
     sc_ms = event_ms(launch_stream_concat, 20)
     sc_op_ms = event_ms(stream_concat_op, 20)
     # the kernels that one op launches, from torch.profiler's trace
-    sc_names = re.findall(
-        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
-        (kernels.CSRC / "stream_concat.cu").read_text())
+    sc_names = global_names("stream_concat")
     sc_trace = device_kernels(stream_concat_op)
     sc_kernel_launches = sum(v["launches"] for k, v in sc_trace.items()
                              if any(nm in k for nm in sc_names))
@@ -478,24 +512,32 @@ def main() -> int:
         kernel_row("sample_pack", "sjpeg_tpu_torch/csrc/sample_pack.cu",
                    "sjpeg_tpu/ops/pallas_quant_pack.py:340",
                    launches["sample_pack"], err1, sp_ms, sp_plain_ms,
-                   sp_bytes, sp_ops),
+                   sp_bytes, sp_ops,
+                   device_us=kernel_us(launch_sample_pack, "sample_pack")),
         kernel_row("stream_concat", "sjpeg_tpu_torch/csrc/stream_concat.cu",
                    "sjpeg_tpu/ops/pallas_tree_concat.py:371",
                    launches["stream_concat"], err2, sc_op_ms, sc_plain_ms,
                    sc_bytes, sc_ops, kernel_ms=sc_ms,
                    kernel_launches_per_op=sc_kernel_launches,
+                   device_us=kernel_us(None, "stream_concat",
+                                       trace=sc_trace),
                    redesigned=True)]
     del words, bits, pwords, pbits, out, pout, sinter, blocks, src
     torch.cuda.empty_cache()
     rows += method4_phases(card, rgb, vlc_long_err)
     torch.cuda.empty_cache()
-    rows += trellis_phases(card, rgb)
+    by_name = {r["name"]: r for r in rows}
+    tr_rows, tr_table_err = trellis_phases(card, rgb)
+    by_name["merge_codesizes"]["max_abs_err"] = max(
+        by_name["merge_codesizes"]["max_abs_err"], tr_table_err)
+    rows += tr_rows
+    by_name.update((r["name"], r) for r in tr_rows)
     torch.cuda.empty_cache()
     search_row, rate_launches = search_phases(card, rgb)
-    rows[-1]["search_per_image_rate_launches"] = rate_launches
+    by_name["trellis"]["search_per_image_rate_launches"] = rate_launches
     rows.append(search_row)
     torch.cuda.empty_cache()
-    rows += single_phases(card, rgb)
+    rows += single_phases(card, rgb, qp_long_err)
     torch.cuda.empty_cache()
     serving_phases(card, rgb)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -507,8 +549,9 @@ def main() -> int:
 
 
 def long_stream_parity(dev):
-    """sample_pack and vlc_pack against their plain versions on the
-    longest streams: full int16-range samples at q100 with the K.3 tables,
+    """sample_pack, vlc_pack and quant_pack against their plain versions on
+    the longest streams: full int16-range samples (quant_pack: full
+    int16-range coefficients) at q100 with the K.3 tables,
     and LUTs whose every piece is 32 bits (code lengths 32 - size), where a
     block with every position coded fills all 2,048 bits of its word row
     (no stream is longer: at most 64 pieces of at most 32 bits);
@@ -520,7 +563,7 @@ def long_stream_parity(dev):
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, state
     from sjpeg_tpu_torch.huffman import k3_default_tables
-    from sjpeg_tpu_torch.ops import sample_pack, vlc, vlc_pack
+    from sjpeg_tpu_torch.ops import quant_pack, sample_pack, vlc, vlc_pack
 
     rng = np.random.RandomState(SEED + 500)
     n_img, per_img = 64, 48
@@ -545,6 +588,8 @@ def long_stream_parity(dev):
     rl = vlc.run_levels(torch.from_numpy(q).to(dev), torch.int32)
     long_runs = torch.where(rl["size"] > 0, torch.from_numpy(
         rng.randint(0, 64, (n, 64)).astype(np.int32)).to(dev), 0)
+    coeffs = torch.from_numpy(rng.randint(-32768, 32768, (n, 64)).astype(
+        np.int32)).to(dev)
     errs, longest = {}, {}
     for lut_name, luts in (("k3", engine._host_luts(k3_default_tables())),
                            ("full_pieces", full)):
@@ -572,6 +617,13 @@ def long_stream_parity(dev):
             torch.cuda.synchronize()
             errs[f"sample_pack/{lut_name}_{sets}"] = max_err(zip(got, want))
             longest[f"sample_pack/{lut_name}_{sets}"] = int(got[1].max())
+            if sets == "shared":         # quant_pack takes one table set
+                got = quant_pack.quant_pack(coeffs, dc, group, *t)
+                want = quant_pack.quant_pack_plain(coeffs, dc, group, *t)
+                torch.cuda.synchronize()
+                key = f"quant_pack/{lut_name}_shared"
+                errs[key] = max_err(zip(got, want))
+                longest[key] = int(got[1].max())
     return errs, longest
 
 
@@ -624,6 +676,77 @@ def stream_concat_edges(dev):
     return errs, {"cases": info}
 
 
+def adversarial_freq_rows(size: int, width: int, seed: int) -> np.ndarray:
+    """[145, width] int32 frequency rows (symbols in the first `size`
+    columns) of every kind a table build meets, in this order: ties
+    everywhere (row 0) and over half the symbols, an empty row (2), one
+    symbol at either end (3, 4), two symbols, Fibonacci rows whose codes
+    pass 16 and 32 bits (the rebalance and the clamp), shuffled and with
+    symbol 0 the most frequent (6-11), values near 2^30, 12 rows whose
+    sums wrap past 2^31 (13-24: the table kernel's 64-bit keys; the fake
+    symbol can land before symbol 0 there), then 120 skewed rows."""
+    rng = np.random.RandomState(seed)
+    fib = [1, 1]
+    while len(fib) < 60:
+        fib.append(fib[-1] + fib[-2])
+    rows = [np.full(size, 5), np.where(rng.rand(size) < 0.5, 7, 0),
+            np.zeros(size, np.int64)]
+    for at in (0, size - 1):
+        one = np.zeros(size, np.int64)
+        one[at] = 3
+        rows.append(one)
+    two = np.zeros(size, np.int64)
+    two[[0, size - 1]] = 2
+    rows.append(two)
+    for n in (24, 40, 60):
+        m = min(n, size)
+        r = np.zeros(size, np.int64)
+        r[rng.permutation(size)[:m]] = fib[:m]
+        rows.append(r)
+        r = np.zeros(size, np.int64)
+        r[:m] = fib[:m][::-1]
+        rows.append(r)
+    big = rng.randint(0, 4, size)
+    big[:3] = [(1 << 30) - 1, 1 << 29, (1 << 28) + 5]
+    rows.append(big)
+    for _ in range(12):
+        r = np.zeros(size, np.int64)
+        n = rng.randint(3, size + 1)
+        r[rng.permutation(size)[:n]] = rng.randint(1 << 29, 1 << 31, n)
+        rows.append(r)
+    for _ in range(120):
+        r = (rng.pareto(0.4 + 2 * rng.rand(), size)
+             * rng.randint(1, 5000)).astype(np.int64)
+        rows.append(np.minimum(r * (rng.rand(size) < rng.rand()),
+                               (1 << 31) - 1))
+    freq = np.zeros((len(rows), width), np.int32)
+    freq[:, :size] = np.stack(rows)
+    return freq
+
+
+def table_parity(dev) -> dict:
+    """The table kernel against optimal_code_luts_plain on the adversarial
+    rows: DC (12 symbols in 16 slots), AC (256 in 320 and in 257), and DC
+    and AC in one launch.  Returns {case: max abs error}."""
+    from sjpeg_tpu_torch.ops import merge_codesizes
+
+    jobs = {name: (torch.from_numpy(adversarial_freq_rows(
+        size, width, SEED + 900 + width)).to(dev), size, lut)
+        for name, size, width, lut in [("dc", 12, 16, 16),
+                                       ("ac", 256, 320, 256),
+                                       ("ac_257", 256, 257, 256)]}
+    errs = {}
+    for name, job in jobs.items():
+        got = merge_codesizes.optimal_tables([job])[0]
+        errs[name] = max_err(zip(got, plain_tables([job])[0]))
+    both = [jobs["dc"], jobs["ac"]]
+    errs["dc_ac_one_launch"] = max(
+        max_err(zip(g, w)) for g, w in zip(merge_codesizes.optimal_tables(
+            both), plain_tables(both)))
+    torch.cuda.synchronize()
+    return errs
+
+
 def sorted_by_search_work(cinter, group, iquant, ibias):
     """The trellis rows (with their groups) by search work, densest first,
     so that a warp's rows cost about the same; for shared matrices and
@@ -638,26 +761,19 @@ def sorted_by_search_work(cinter, group, iquant, ibias):
 
 
 def method4_inputs(rgb: np.ndarray):
-    """The method-4 batch's vlc_pack arguments and merge states, as its
-    encode_batch stages them: (fields: run, size, code, DC codes, groups;
-    its per-image DC and AC LUTs; the K.3 LUTs; the arguments of each
-    merge_codesizes launch)."""
+    """The method-4 batch's vlc_pack arguments and symbol frequencies, as
+    its encode_batch stages them: (fields: run, size, code, DC codes,
+    groups; its per-image DC and AC LUTs; the K.3 LUTs; the DC and AC
+    frequencies of its table build)."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, pipeline, state
     from sjpeg_tpu_torch.huffman import k3_default_tables
-    from sjpeg_tpu_torch.ops import huffman_device, merge_codesizes
     from sjpeg_tpu_torch.params import method_flags
 
     dev = torch.device(DEVICE)
     b, h, w = rgb.shape[:3]
     param = method4(C.YUV_420)
     nb = tuple(pipeline.component_layout(C.YUV_420, w, h).nb_blocks)
-    merge_states = []
-
-    def record(*args):
-        merge_states.append(args)
-        return merge_codesizes.merge_codesizes(*args)
-
     src = torch.from_numpy(rgb).to(dev)
     coeffs, histos = engine._stage_batch_coeffs(src, "rgb", C.YUV_420, w, h,
                                                 True, b)
@@ -666,21 +782,21 @@ def method4_inputs(rgb: np.ndarray):
     vlc_state, freqs = engine._stage_batch_quantize(coeffs, iq, ib, True, nb,
                                                     b, b)
     del coeffs, src
-    with mock.patch.object(huffman_device, "merge_codesizes", record):
-        dcl, acl, _, _ = engine._stage_tables(
-            freqs, method_flags(param.method), 2, b, False, dev)
+    dcl, acl, _, _ = engine._stage_tables(freqs, method_flags(param.method),
+                                          2, b, False, dev)
     k3 = state.arrays_to_device(*engine._host_luts(k3_default_tables()),
                                 device=dev)
     rl, dc, group = vlc_state
     fields = (rl["run"], rl["size"], rl["code"], dc, group)
-    return fields, (dcl, acl), k3, merge_states
+    return fields, (dcl, acl), k3, freqs
 
 
 def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
-    """The method-4 path on the same batch: m4_parity, m4_path, m4_cases,
-    m4_timing and m4_breakdown; returns the kernel rows of vlc_pack (its
-    error including sp_long_streams' vlc_pack cases, vlc_long_err) and
-    merge_codesizes."""
+    """The method-4 path on the same batch: tables, m4_parity, m4_path,
+    m4_cases, m4_timing and m4_breakdown; returns the kernel rows of
+    vlc_pack (its error including sp_long_streams' vlc_pack cases,
+    vlc_long_err) and merge_codesizes (its error including the
+    adversarial rows)."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, pipeline, state
     from sjpeg_tpu_torch.ops import (huffman_device, merge_codesizes,
@@ -694,9 +810,20 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     nb = tuple(layout.nb_blocks)
     bucket = engine._bucket(layout, WIDTH, HEIGHT, 4.0)
 
+    # ---- tables: the table kernel on rows of every kind -----------------
+    table_errs = table_parity(dev)
+    emit("tables", max_abs_err=table_errs)
+    need(max(table_errs.values()) == 0,
+         "the table kernel exact against its plain version (every row kind)")
+
     # ---- m4_parity: the path's own inputs, each kernel vs plain ---------
-    fields, (dcl, acl), (k3_dcl, k3_acl), merge_states = method4_inputs(rgb)
+    fields, (dcl, acl), (k3_dcl, k3_acl), freqs = method4_inputs(rgb)
     n = fields[3].shape[0]
+    jobs = huffman_device.table_jobs(freqs[0].reshape(BATCH, 2, -1),
+                                     freqs[1].reshape(BATCH, 2, -1))
+    tables = merge_codesizes.optimal_tables(jobs)
+    err_tables = max(max_err(zip(g, w)) for g, w in zip(
+        tables, plain_tables(jobs)))
 
     words, bits = vlc_pack.vlc_pack(*fields, dcl, acl)
     pwords, pbits = vlc_pack.vlc_pack_plain(*fields, dcl, acl)
@@ -708,39 +835,39 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     torch.cuda.synchronize()
     err_shared = max_err([(swords, pswords), (sbits, psbits)])
     del swords, pswords
-    merge_out = [merge_codesizes.merge_codesizes(*a) for a in merge_states]
-    merge_plain = [merge_codesizes.merge_codesizes_plain(*a)
-                   for a in merge_states]
-    torch.cuda.synchronize()
-    err_merge = [max_err([pair]) for pair in zip(merge_out, merge_plain)]
     emit("m4_parity", blocks=n, bucket=bucket,
          vlc_pack_per_image_max_abs_err=err_sets,
          vlc_pack_shared_max_abs_err=err_shared,
-         merge_codesizes_shapes=[list(a[0].shape) for a in merge_states],
-         merge_codesizes_max_abs_err=err_merge,
+         merge_codesizes_shapes=[list(j[0].shape) for j in jobs],
+         merge_codesizes_max_abs_err=err_tables,
          total_bits=int(bits.long().sum()))
     need(err_sets == 0 and err_shared == 0,
          "vlc_pack bit-exact against its plain version (both LUT variants)")
-    need(len(merge_states) == 2 and max(err_merge) == 0,
-         "merge_codesizes exact against its plain version (DC and AC)")
+    need(err_tables == 0,
+         "the table kernel exact against its plain version (DC and AC)")
 
     # ---- m4_path --------------------------------------------------------
     counted = {"vlc_pack": vlc_pack.vlc_pack,
-               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "merge_codesizes": merge_codesizes.optimal_tables,
                "stream_concat": stream_concat.stream_concat,
                "sample_pack": sample_pack.sample_pack}
     for fn in counted.values():
         fn.launches = 0
+    huffman_device.optimal_code_luts.any_reads = 0
     jpegs = engine.encode_batch(rgb, param, device=dev)
     launches = {k: fn.launches for k, fn in counted.items()}
+    any_reads = huffman_device.optimal_code_luts.any_reads
     with plain_forced():
         plain_jpegs = engine.encode_batch(rgb, param, device=dev)
     same = jpegs == plain_jpegs
     emit("m4_path", images=len(jpegs), launches=launches,
-         bytes_total=sum(len(j) for j in jpegs), byte_equal_plain=same)
+         any_reads=any_reads, bytes_total=sum(len(j) for j in jpegs),
+         byte_equal_plain=same)
     need(all(launches[k] > 0 for k in ("vlc_pack", "merge_codesizes",
                                        "stream_concat")),
          "the method-4 path ran vlc_pack, merge_codesizes, stream_concat")
+    need(launches["merge_codesizes"] == 1 and any_reads == 0,
+         "one table launch a batch, with no host read")
     need(same, "method-4 bytes equal the plain-forced path")
     need(all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9" for j in jpegs),
          "SOI/EOI markers")
@@ -790,7 +917,7 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
 
     # ---- m4_timing ------------------------------------------------------
     vp_fn = kernels.function("vlc_pack", "sjpeg_vlc_pack", vlc_pack._ARGTYPES)
-    mc_fn = kernels.function("merge_codesizes", "sjpeg_merge_codesizes",
+    mc_fn = kernels.function("merge_codesizes", "sjpeg_optimal_tables",
                              merge_codesizes._ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -799,31 +926,31 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
                             al.data_ptr(), words.data_ptr(), bits.data_ptr(),
                             n, n // n_sets, n_sets, stream), "vlc_pack")
 
-    merge_args = []
-    for freqw, active, comp, cs, nleft, steps in merge_states:
-        act = active.to(torch.int32).contiguous()
-        out = torch.empty_like(freqw)
-        merge_args.append((freqw, act, comp, cs, nleft, out, steps))
+    def launch_tables():            # the one launch, into the same buffers
+        merge_codesizes.launch(mc_fn, jobs, tables)
 
-    def launch_merge(freqw, act, comp, cs, nleft, out, steps):
-        kernels.check(mc_fn(freqw.data_ptr(), act.data_ptr(), comp.data_ptr(),
-                            cs.data_ptr(), nleft.data_ptr(), out.data_ptr(),
-                            freqw.shape[0], freqw.shape[1], steps, stream),
-                      "merge_codesizes")
+    def tables_op():                # as _stage_tables runs it
+        return huffman_device.luts_and_desc_from_freqs(
+            freqs[0].reshape(BATCH, 2, -1), freqs[1].reshape(BATCH, 2, -1))
 
     vp_ms = event_ms(lambda: launch_vlc_pack(dcl, acl, BATCH), 20)
     vp_shared_ms = event_ms(lambda: launch_vlc_pack(k3_dcl, k3_acl, 1), 20)
-    mc_ms = [event_ms(lambda a=a: launch_merge(*a), 20) for a in merge_args]
+    mc_ms = event_ms(launch_tables, 20)
+    mc_op_ms = event_ms(tables_op, 20)
     vp_plain_ms = event_ms(lambda: vlc_pack.vlc_pack_plain(*fields, dcl, acl),
                            3)
-    mc_plain_ms = [event_ms(lambda a=a: merge_codesizes.merge_codesizes_plain(
-        *a), 3) for a in merge_states]
+    mc_plain_ms = event_ms(lambda: plain_tables(jobs), 3)
+    mc_us = kernel_us(launch_tables, "merge_codesizes")
+    mc_op_trace = device_kernels(tables_op, 5)
+    vp_us = kernel_us(lambda: launch_vlc_pack(dcl, acl, BATCH), "vlc_pack")
     e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 5)
     mpx = BATCH * HEIGHT * WIDTH / 1e6
     emit("m4_timing", gpu=card, vlc_pack_ms=vp_ms,
          vlc_pack_shared_ms=vp_shared_ms, vlc_pack_plain_ms=vp_plain_ms,
-         merge_codesizes_dc_ac_ms=mc_ms,
-         merge_codesizes_plain_dc_ac_ms=mc_plain_ms,
+         vlc_pack_device_us=vp_us, merge_codesizes_ms=mc_ms,
+         merge_codesizes_op_ms=mc_op_ms, merge_codesizes_plain_ms=mc_plain_ms,
+         merge_codesizes_device_us=mc_us,
+         merge_codesizes_op_device_kernels=mc_op_trace,
          encode_batch_ms=e2e_ms, encode_batch_mpx_per_s=mpx / (e2e_ms / 1e3),
          megapixels=mpx)
 
@@ -881,30 +1008,41 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     # mask, ~20 per coded coefficient and ~8 per ZRL to look up and pack,
     # ~30 a block for the DC code, EOB and flush
     vp_ops = n * (64 * 4 + 30) + n_coded * 20 + n_zrl * 8
+    # the table build: each row's `size` frequencies read once (the kernel
+    # reads no padding column), the LUTs, counts, symbol counts and DHT
+    # orders written once; operations for the merge
+    # steps this run's rows take (the fake's and one a symbol more), ~2 a
+    # live key for the argmin-2 and ~4 a slot for the code-size update,
+    # and ~40 a symbol for the ranks, codes and writes
     mc_bytes = mc_ops = 0
-    for freqw, _, _, _, nleft, steps in merge_states:
-        g, w = freqw.shape
-        mc_bytes += 4 * (5 * g * w + g)
-        # ~12 per slot per merge step a row really runs (its active nodes
-        # less one): two key compares, the merge and relabel updates
-        mc_ops += int((nleft - 1).clamp(0, steps).sum()) * w * 12
+    for (freq, size, lut_size), out in zip(jobs, tables):
+        g = freq.shape[0]
+        mc_bytes += 4 * (g * size + sum(t.numel() for t in out))
+        nbs = out[2].long().cpu()
+        mc_ops += int((nbs * (nbs + 1) + 4 * (size + 1) * nbs).sum()
+                      + 40 * size * g)
     return [
         kernel_row("vlc_pack", "sjpeg_tpu_torch/csrc/vlc_pack.cu",
                    "sjpeg_tpu/ops/pallas_vlc_pack.py:534",
                    launches["vlc_pack"],
                    max(err_sets, err_shared, vlc_long_err), vp_ms,
                    vp_plain_ms, vp_bytes, vp_ops, shared_ms=vp_shared_ms,
-                   coded_positions=n_coded, redesigned=True),
+                   device_us=vp_us, coded_positions=n_coded,
+                   redesigned=True),
         kernel_row("merge_codesizes", "sjpeg_tpu_torch/csrc/merge_codesizes.cu",
                    "sjpeg_tpu/ops/huffman_device.py:101",
-                   launches["merge_codesizes"], max(err_merge), sum(mc_ms),
-                   sum(mc_plain_ms), mc_bytes, mc_ops, dc_ac_ms=mc_ms,
-                   serial_steps=[a[5] for a in merge_states])]
+                   launches["merge_codesizes"],
+                   max(err_tables, *table_errs.values()),
+                   mc_ms, mc_plain_ms, mc_bytes, mc_ops, op_ms=mc_op_ms,
+                   device_us=mc_us, longest_chain=int(max(
+                       int(t[2].max()) for t in tables)),
+                   redesigned=True)]
 
 
 def trellis_phases(card: str, rgb: np.ndarray) -> list:
     """The method-7 path on the same batch: tr_parity, tr_path, tr_cases,
-    tr_timing and tr_breakdown; returns the trellis kernel row."""
+    tr_timing and tr_breakdown; returns the trellis kernel row and the
+    table kernel's error on the trellis's frequencies."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, pipeline, state
     from sjpeg_tpu_torch.huffman import trellis_cost_lens
@@ -936,6 +1074,10 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     # per-image rate tables as a search pass would have them: the optimal
     # AC code lengths of each image's own trellis statistics
     _, freqs = engine._stage_trellis_post(levels, dc, group, True, BATCH)
+    jobs = huffman_device.table_jobs(freqs[0].reshape(BATCH, 2, -1),
+                                     freqs[1].reshape(BATCH, 2, -1))
+    table_err = max(max_err(zip(g, w)) for g, w in zip(
+        merge_codesizes.optimal_tables(jobs), plain_tables(jobs)))
     _, acl, _, _ = engine._stage_tables(freqs, flags, 2, BATCH, False, dev)
     lt_img = (acl & 0xFF).contiguous()
     shared = state.arrays_to_device(*engine._quant_arrays(per_qms[0]),
@@ -957,15 +1099,17 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
         del got, want
     evaluations = trellis.search_evaluations(cinter, iq, ib, group, BATCH)
     emit("tr_parity", blocks=n, max_abs_err=errs,
+         table_max_abs_err=table_err,
          nonzero_ac_levels=int((levels[:, 1:] != 0).sum()),
          evaluated_scores=evaluations)
     need(all(e == 0 for e in errs.values()),
          "trellis bit-exact against its plain version (every variant)")
+    need(table_err == 0, "the table kernel exact on method 7's frequencies")
 
     # ---- tr_path --------------------------------------------------------
     counted = {"trellis": trellis.trellis_quantize,
                "vlc_pack": vlc_pack.vlc_pack,
-               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "merge_codesizes": merge_codesizes.optimal_tables,
                "stream_concat": stream_concat.stream_concat,
                "sample_pack": sample_pack.sample_pack}
     for fn in counted.values():
@@ -1051,6 +1195,8 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     tr_ms["sorted_rows"] = event_ms(lambda: launch_trellis(
         *variants["shared_mats"], coeffs=csorted, grp=gsorted), 20)
     del csorted, gsorted
+    tr_us = kernel_us(lambda: launch_trellis(*variants["per_image_mats"]),
+                      "trellis")
     tr_plain_ms = event_ms(lambda: trellis.trellis_quantize_plain(
         cinter, iq, ib, qq, group, lt, BATCH), 3)
     e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 5)
@@ -1119,8 +1265,8 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
                        "sjpeg_tpu/ops/pallas_trellis.py:319",
                        launches["trellis"], max(errs.values()),
                        tr_ms["per_image_mats"], tr_plain_ms, tr_bytes,
-                       tr_ops, variant_ms=tr_ms,
-                       evaluated_scores=evaluations)]
+                       tr_ops, variant_ms=tr_ms, device_us=tr_us,
+                       evaluated_scores=evaluations)], table_err
 
 
 def search_inputs(img: np.ndarray, mode: int, quals) -> tuple:
@@ -1189,7 +1335,7 @@ def search_phases(card: str, rgb: np.ndarray):
     # ---- search_path ----------------------------------------------------
     counted = {"sample_pack": sample_pack.sample_pack,
                "stream_concat": stream_concat.stream_concat,
-               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "merge_codesizes": merge_codesizes.optimal_tables,
                "vlc_pack": vlc_pack.vlc_pack,
                "trellis": trellis.trellis_quantize}
     runs = []
@@ -1220,8 +1366,8 @@ def search_phases(card: str, rgb: np.ndarray):
     need(len(runs) == 1 and per_image == runs[0] == launches["sample_pack"],
          "one per-image sample_pack launch per executed pass")
     need(launches["stream_concat"] == runs[0]
-         and launches["merge_codesizes"] == 2 * runs[0],
-         "stream_concat once and merge_codesizes twice a pass")
+         and launches["merge_codesizes"] == runs[0],
+         "stream_concat and the table kernel once a pass")
     need(same, "search bytes equal the plain-forced path")
     need(all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9" for j in jpegs),
          "SOI/EOI markers")
@@ -1308,6 +1454,8 @@ def search_phases(card: str, rgb: np.ndarray):
                             n // n_sets, n_sets, stream), "sample_pack")
 
     per_image_ms = event_ms(lambda: launch((iq3, ib3, dcl, acl), BATCH), 20)
+    per_image_us = kernel_us(lambda: launch((iq3, ib3, dcl, acl), BATCH),
+                             "sample_pack")
     shared_ms = event_ms(lambda: launch((iq3[0], ib3[0], dcl[0], acl[0]), 1),
                          20)
     plain_ms = event_ms(lambda: sample_pack.sample_pack_plain(*args), 3)
@@ -1365,14 +1513,15 @@ def search_phases(card: str, rgb: np.ndarray):
                      per_image, max(v for k, v in errs.items()
                                     if "blocks" not in k),
                      per_image_ms, plain_ms, sp_bytes, sp_ops,
-                     shared_tables_ms=shared_ms)
+                     shared_tables_ms=shared_ms, device_us=per_image_us)
     return row, rate_launches
 
 
-def single_phases(card: str, rgb: np.ndarray) -> list:
+def single_phases(card: str, rgb: np.ndarray, qp_long_err: int) -> list:
     """The single-image API and the last two kernels: single_kernels,
     single_parity, single_path and single_timing; returns the kernel rows
-    of fdct and quant_pack."""
+    of fdct and quant_pack (its error including sp_long_streams'
+    quant_pack cases, qp_long_err)."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, pipeline, state
     from sjpeg_tpu_torch.huffman import k3_default_tables
@@ -1424,12 +1573,15 @@ def single_phases(card: str, rgb: np.ndarray) -> list:
     fd_ms = event_ms(lambda: launch_fdct(samples), 20)
     fd16_ms = event_ms(lambda: launch_fdct(s16), 20)
     qp_ms = event_ms(launch_quant_pack, 20)
+    fd_us = kernel_us(lambda: launch_fdct(samples), "fdct")
+    qp_us = kernel_us(launch_quant_pack, "quant_pack")
     fd_plain_ms = event_ms(lambda: fdct.fdct_blocks_plain(samples), 3)
     qp_plain_ms = event_ms(lambda: quant_pack.quant_pack_plain(*qargs), 3)
     emit("single_kernels", gpu=card, blocks=n, fdct_max_abs_err=err_fdct,
          quant_pack_max_abs_err=err_qp, fdct_ms=fd_ms, fdct_int16_ms=fd16_ms,
-         fdct_plain_ms=fd_plain_ms, quant_pack_ms=qp_ms,
-         quant_pack_plain_ms=qp_plain_ms, total_bits=int(bits.long().sum()))
+         fdct_plain_ms=fd_plain_ms, fdct_device_us=fd_us,
+         quant_pack_ms=qp_ms, quant_pack_plain_ms=qp_plain_ms,
+         quant_pack_device_us=qp_us, total_bits=int(bits.long().sum()))
     need(err_fdct == 0, "fdct bit-exact against its plain version")
     need(err_qp == 0, "quant_pack bit-exact against its plain version")
     ac_nonzero = int((quantize.quantize_values(
@@ -1501,7 +1653,7 @@ def single_phases(card: str, rgb: np.ndarray) -> list:
                "sample_pack": sample_pack.sample_pack,
                "stream_concat": stream_concat.stream_concat,
                "vlc_pack": vlc_pack.vlc_pack,
-               "merge_codesizes": merge_codesizes.merge_codesizes,
+               "merge_codesizes": merge_codesizes.optimal_tables,
                "trellis": trellis.trellis_quantize}
     launches, jpegs, same, passes = {}, {}, {}, {}
     for name, fn in runs.items():
@@ -1556,11 +1708,12 @@ def single_phases(card: str, rgb: np.ndarray) -> list:
         kernel_row("fdct", "sjpeg_tpu_torch/csrc/fdct.cu",
                    "sjpeg_tpu/ops/pallas_fdct.py:270", total["fdct"],
                    err_fdct, fd_ms, fd_plain_ms, fd_bytes, n * 1250,
-                   int16_ms=fd16_ms),
+                   int16_ms=fd16_ms, device_us=fd_us),
         kernel_row("quant_pack", "sjpeg_tpu_torch/csrc/quant_pack.cu",
                    "sjpeg_tpu/ops/pallas_quant_pack.py:493",
-                   total["quant_pack"], err_qp, qp_ms, qp_plain_ms, qp_bytes,
-                   n * 63 * 7 + ac_nonzero * 20)]
+                   total["quant_pack"], max(err_qp, qp_long_err), qp_ms,
+                   qp_plain_ms, qp_bytes, n * 63 * 7 + ac_nonzero * 20,
+                   device_us=qp_us, redesigned=True)]
 
 
 def serving_phases(card: str, rgb: np.ndarray) -> None:

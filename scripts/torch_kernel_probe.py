@@ -23,15 +23,25 @@ are chip_smoke.py's main configuration, 16 x 1024 x 1024 RGB, 4:2:0, q75
   sets (16 quantizers);
 - trellis: method 7's coefficients with fitted per-image matrices, and the
   same rows sorted by search work with shared matrices;
-- merge_codesizes: method 4's DC and AC merge states;
+- merge_codesizes: method 4's DC and AC frequencies.  The timed unit is
+  the whole table build as that tree runs it: for a library that exports
+  sjpeg_optimal_tables, its one launch (DC and AC rows in one grid); for
+  one that exports sjpeg_merge_codesizes, the torch table build
+  (huffman_device.optimal_code_luts_plain, the parent tree's
+  optimal_code_luts body) with that merge kernel inside it, once for the
+  DC rows and once for the AC rows, its rebalance reading a device flag
+  on the host each turn.  That op allocates its outputs through torch's
+  caching allocator, as in its tree; the one-launch variant writes the
+  same buffers on every call;
 - fdct: int32 samples; quant_pack: coefficients with K.3 tables.
 Each variant's output is held against the plain PyTorch version; the
 variants of a case write to the same output buffers.  Each call is timed
 with CUDA events, median of --reps after a warm-up, the variants in turn,
 twice (a, b).  torch.profiler then traces 5 more calls of each variant and
-reports each kernel it launched (a stream_concat op's memset, chunk sums
-and placement) with its launches and device microseconds a call
-(chip_smoke.device_kernels).
+reports each kernel it launched (a stream_concat op's zero fill, chunk
+sums and placement; the parent table build's some 70 kernels) with its
+launches and device microseconds a call (chip_smoke.device_kernels), and
+their sum a call.
 Prints one JSON line with every time, error and ptxas line, then the
 card's name and power limit.  Needs CUDA and nvcc.
 """
@@ -45,6 +55,7 @@ import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -56,9 +67,10 @@ from sjpeg_tpu_torch import constants as C  # noqa: E402
 from sjpeg_tpu_torch import engine, kernels, pipeline, state  # noqa: E402
 from sjpeg_tpu_torch.huffman import (k3_default_tables,  # noqa: E402
                                      trellis_cost_lens)
-from sjpeg_tpu_torch.ops import (colorspace, fdct, merge_codesizes,  # noqa: E402
-                                 quant_pack, sample_pack, stream_concat,
-                                 trellis, vlc_pack)
+from sjpeg_tpu_torch.ops import (colorspace, fdct,  # noqa: E402
+                                 huffman_device, merge_codesizes, quant_pack,
+                                 sample_pack, stream_concat, trellis,
+                                 vlc_pack)
 
 KERNELS = ("stream_concat", "vlc_pack", "sample_pack", "trellis",
            "merge_codesizes", "fdct", "quant_pack")
@@ -136,10 +148,11 @@ def make_cases(dev, wanted):
             "batch": (words, bits, B, engine._bucket(layout, W, H, 4.0)),
             "photo": (*one, 1, one[0].shape[0] * 64)}
     if {"vlc_pack", "merge_codesizes"} & wanted:
-        fields, luts, k3_luts, merge_states = chip_smoke.method4_inputs(rgb)
+        fields, luts, k3_luts, freqs = chip_smoke.method4_inputs(rgb)
         cases["vlc_pack"] = {"per_image": (*fields, *luts),
                              "shared": (*fields, *k3_luts)}
-        cases["merge_codesizes"] = dict(zip(("dc", "ac"), merge_states))
+        cases["merge_codesizes"] = {"batch": (huffman_device.table_jobs(
+            freqs[0].reshape(B, 2, -1), freqs[1].reshape(B, 2, -1)),)}
     if "trellis" in wanted:
         cases["trellis"] = trellis_inputs(rgb, dev)
     if {"fdct", "quant_pack"} & wanted:
@@ -168,7 +181,7 @@ def plain(kernel, args):
         c, g, a, b, q, r = args
         return (trellis.trellis_quantize_plain(c, a, b, q, g, r, B),)
     if kernel == "merge_codesizes":
-        return (merge_codesizes.merge_codesizes_plain(*args),)
+        return [t for out in chip_smoke.plain_tables(*args) for t in out]
     if kernel == "fdct":
         return (fdct.fdct_blocks_plain(*args),)
     return quant_pack.quant_pack_plain(*args)
@@ -258,17 +271,35 @@ def launcher(kernel, lib, args, stream, buffers):
         return run
 
     if kernel == "merge_codesizes":
-        freqw, active, comp, cs, nleft, steps = args
-        act = active.to(torch.int32).contiguous()
-        out = buffers.setdefault("out", torch.empty_like(freqw))
-        f = fn("sjpeg_merge_codesizes", merge_codesizes._ARGTYPES)
+        (jobs,) = args
+        if hasattr(lib, "sjpeg_optimal_tables"):
+            f = fn("sjpeg_optimal_tables", merge_codesizes._ARGTYPES)
+            outs = buffers.setdefault("tables", merge_codesizes.outputs(jobs))
 
-        def run():
-            check(f(freqw.data_ptr(), act.data_ptr(), comp.data_ptr(),
-                    cs.data_ptr(), nleft.data_ptr(), out.data_ptr(),
-                    freqw.shape[0], freqw.shape[1], steps, stream))
-            return (out,)
-        return run
+            def tables():
+                merge_codesizes.launch(f, jobs, outs)
+                return [t for out in outs for t in out]
+            return tables
+        f = fn("sjpeg_merge_codesizes", [ctypes.c_void_p] * 6
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+        def merge(freqw, active, comp, cs, nleft, steps):
+            act = active.to(torch.int32).contiguous()
+            out = torch.empty_like(freqw)
+            with torch.cuda.device(freqw.device):
+                check(f(freqw.data_ptr(), act.data_ptr(), comp.data_ptr(),
+                        cs.data_ptr(), nleft.data_ptr(), out.data_ptr(),
+                        freqw.shape[0], freqw.shape[1], steps,
+                        torch.cuda.current_stream().cuda_stream))
+            return out
+
+        def parent_op():      # the torch table build around the merge kernel
+            with mock.patch.object(merge_codesizes, "merge_codesizes_plain",
+                                   merge):
+                return [t for freq, size, lut in jobs
+                        for t in huffman_device.optimal_code_luts_plain(
+                            freq, size, lut, with_syms=True)]
+        return parent_op
 
     (x,) = args
     coeffs = buffers.setdefault("coeffs", torch.empty_like(x))
@@ -334,6 +365,8 @@ def main() -> int:
             ms.setdefault(key, {})[turn] = chip_smoke.event_ms(fn, args.reps)
     profile = {key: chip_smoke.device_kernels(fn, 5)
                for key, fn in launches.items()}
+    device_us = {key: sum(v["us"] for v in kern.values())
+                 for key, kern in profile.items()}
     ratios = {}
     for key in ms:
         kernel, variant, case = key.split("/")
@@ -342,7 +375,8 @@ def main() -> int:
             ratios[key] = {t: ms[key][t] / base[t] for t in ("a", "b")}
     card = chip_smoke.gpu_name_and_limit()
     print(json.dumps({"gpu": card, "ms": ms, "over_parent": ratios,
-                      "max_abs_err": errors, "device_kernels": profile,
+                      "max_abs_err": errors, "device_us": device_us,
+                      "device_kernels": profile,
                       "ptxas": ptxas,
                       "blocks": B * H * W * 3 // 2 // 64}), flush=True)
     print(card, flush=True)

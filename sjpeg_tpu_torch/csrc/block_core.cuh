@@ -10,7 +10,9 @@
 // positions, and quant_emit_block feeds it the fields it derives from
 // quantized coefficients (quant_pack, and sample_pack after fdct_block);
 // emit_coded visits only the coded positions of a mask, and vlc_pack feeds
-// it the fields it is given.  fdct runs fdct_block alone.
+// it the fields it is given, quant_pack (quant_emit_coded) the fields it
+// derives from coefficients staged in zigzag order.  fdct runs fdct_block
+// alone.
 //
 // Bit-exact contract: the result equals the port's plain PyTorch chain
 // ops/fdct.fdct_blocks_plain -> ops/quantize ->
@@ -37,6 +39,25 @@ namespace sjpeg {
    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,           \
    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,           \
    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63}
+
+// zigzag[k], the raster position of zigzag position k, and its inverse,
+// for indices known only at run time: unrolled selects over the constant
+// table, so that a kernel keeps no table in local memory.
+SJ_HD int zigzag_raster(int k) {
+  const int zigzag[64] = SJPEG_ZIGZAG;
+  int p = 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) p = i == k ? zigzag[i] : p;
+  return p;
+}
+
+SJ_HD int zigzag_slot(int p) {
+  const int zigzag[64] = SJPEG_ZIGZAG;
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) k = zigzag[i] == p ? i : k;
+  return k;
+}
 
 // fDCT constants (reference src/fdct.cc:28-43)
 constexpr uint32_t kTan1 = 13036u;
@@ -297,6 +318,48 @@ SJ_HD int quant_emit_block(const uint32_t x[64], uint32_t dc_code, int g,
     last = k;
   };
   return emit_block(dc_code, dc_lut + 16 * g, ac_lut + 256 * g, fields, out);
+}
+
+// The coded positions of one block staged in zigzag order: bit k (1..63)
+// of the result is set where row[k], the coefficient at zigzag position k,
+// quantizes to nonzero with its group's quantizer rows iq, ib [64] in
+// zigzag order.
+SJ_HD uint64_t quant_coded_mask(const uint32_t* row, const uint32_t* iq,
+                                const uint32_t* ib) {
+  uint64_t mask = 0;
+#pragma unroll
+  for (int k = 1; k < 64; ++k)
+    mask |= (uint64_t)(quantize((int32_t)row[k], iq[k], ib[k]) != 0) << k;
+  return mask;
+}
+
+// quant_emit_block over the coded positions only, in place: row[k] holds
+// the block's coefficient at zigzag position k (x16 scale), iq, ib [64]
+// its group's quantizer rows in zigzag order, mask = quant_coded_mask(row,
+// iq, ib), dc_lut [16] and ac_lut [256] its group's LUT rows.  emit_coded
+// writes the stream over row[0..63] (zero past it) and the exact bit count
+// is returned, both as quant_emit_block gives them.  Runs are the gaps
+// between coded positions, so the stream never reaches a slot still to be
+// read: emit_coded's in_place always holds (a host build may check it by
+// defining SJ_CHECK_IN_PLACE).
+#ifndef SJ_CHECK_IN_PLACE
+#define SJ_CHECK_IN_PLACE(in_place) ((void)0)
+#endif
+SJ_HD int quant_emit_coded(uint32_t* row, uint64_t mask, uint32_t dc_code,
+                           const uint32_t* iq, const uint32_t* ib,
+                           const uint32_t* dc_lut, const uint32_t* ac_lut) {
+  int last = 0;
+  auto field = [&](int k, bool in_place) {
+    SJ_CHECK_IN_PLACE(in_place);
+    const int32_t q = quantize((int32_t)row[k], iq[k], ib[k]);
+    const uint32_t mag = (uint32_t)(q < 0 ? -q : q);
+    const uint32_t size = calc_log2(mag);
+    const uint32_t code = (q < 0 ? ~mag : mag) & ((1u << size) - 1u);
+    const uint32_t run = (uint32_t)(k - last - 1);
+    last = k;
+    return (run << 21) | (size << 16) | code;
+  };
+  return emit_coded(dc_code, dc_lut, ac_lut, mask, field, row);
 }
 
 // One block from raster samples x[64] (destroyed): fdct_block, then

@@ -1,128 +1,158 @@
-// merge_codesizes: the batched Huffman merge loop -> per-symbol code sizes.
+// merge_codesizes: frequency rows -> each row's whole optimal Huffman table
+// (packed LUT, code-length counts, symbol count, DHT order), one launch for
+// every row of a table build.
 //
 // Replaces the TPU kernel sjpeg_tpu/ops/huffman_device.py
-// _merge_codesizes_pallas (_merge_kernel).  Each of G independent rows
-// holds a merge state over W slots (W = 16 for DC tables, 320 for AC):
-// frequency, active flag, component id and code size, plus the row's count
-// of active nodes.  One step of a row with more than one active node:
-//   i2 = the active slot with the smallest (freq, slot),
-//   i1 = the active slot with the next smallest (freq, slot),
-//   freq[i1] += freq[i2]; slot i2 retires;
-//   every slot whose component is i1 or i2 gets one more bit of code size
-//   and joins component i1.
-// Frequencies are int32 and add with wraparound, as in the JAX version.
+// _merge_codesizes_pallas (_merge_kernel), the merge loop of
+// optimal_code_luts, and builds the rest of that function's table on the
+// card too: the first merge of the fake symbol, the clamp and the length
+// histogram, the rebalance to 16 bits, the (code size, symbol) ranks, the
+// canonical codes and the DHT order.  On the TPU, XLA fuses that tail under
+// jax.jit; in eager PyTorch it was some 70 small launches around the merge
+// kernel, and the rebalance loop read a device flag on the host each turn.
+// Here a table build is one launch and reads nothing back.
 //
-// Bound on the H100: neither bytes nor operations.  At B = 16 the two
-// launches (DC, AC) see G = 32 rows each and move ~0.2 MB; the AC launch
-// does ~32 x 320 x 255 x 12 ~ 31 M operations (~0.5 us at 67 T/s).  What
-// holds it is its chain of up to 255 dependent steps per row.  Design: one
-// warp per row, the row's slots in registers (slot lane + 32 j, at most 10
-// a lane).  Each step finds the two smallest 64-bit keys
-// ((freq ^ 0x80000000) << 32 | slot: signed order on frequency, ties to the
-// lower slot exactly as the JAX argmin) with one lane-local pass and one
-// warp-shuffle reduction of (smallest, second smallest) pairs, then updates
-// its slots.  A row stops once one node is left; the remaining steps of the
-// JAX loop are no-ops for it.
+// Bound on the H100: neither bytes nor operations.  A method-4 batch of 16
+// images builds 32 DC rows (16 frequencies) and 32 AC rows (320) and
+// writes ~20 KB of tables: ~0.02 us at 3.35 TB/s.  Its operations, ~2 a
+// live key and ~4 a slot each merge step for the argmin-2 and the
+// code-size update, and ~40 a symbol for the ranks and codes, are ~40 M,
+// ~0.6 us at 67 T/s.  What holds it is each row's chain of up to 255
+// dependent merge steps (256 symbols and the fake): each step needs the
+// row's two smallest keys of the step before.  Design: one warp per row,
+// one row per CTA, so that the rows' chains run side by side on different
+// SMs, DC and AC rows in one grid.  The row's algorithm is table_core.cuh's
+// table_row over the warp policy below: every lane keeps its share of the
+// live keys sorted in registers, so a step is two warp min-reductions
+// (__reduce_min_sync on the 64-bit key's two halves, two redux each), a pop
+// and a sorted insertion in the lanes that held the two winners, and the
+// code-size update over the lane's nine slots, delayed a step so that it
+// overlaps the next step's reductions.  The tail runs on
+// the 32 lanes: shared-memory atomics for the length histogram, lanes as
+// lengths for the rebalance and the first codes, __match_any_sync for the
+// stable ranks, 32 symbols a round.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// table_row runs only here, on the device policy below
+#define SJ_TABLE_FN __device__ __forceinline__
+#include "table_core.cuh"
+
+// One table build's rows: [rows, width] int32 frequencies -> lut
+// [rows, lut_size], bits [rows, 16], nb_syms [rows], syms [rows, size].
+struct TableJob {
+  const int32_t* freq;
+  int32_t* lut;
+  int32_t* bits;
+  int32_t* nb_syms;
+  int32_t* syms;
+  int rows, width, size, lut_size;
+};
+
+constexpr int kMaxTableJobs = 2;   // DC and AC rows in one grid
+
+struct TableJobs {
+  TableJob job[kMaxTableJobs];
+  int n;
+};
+
 namespace {
 
-constexpr int kWarps = 4;          // rows per CTA, one warp each
-constexpr int kMaxPerLane = 10;    // W <= 32 * 10
 constexpr unsigned kFull = 0xFFFFFFFFu;
-using u64 = unsigned long long;    // the type __shfl_xor_sync takes
 
-__device__ __forceinline__ u64 key_of(int32_t freq, int slot) {
-  return ((u64)((uint32_t)freq ^ 0x80000000u) << 32) | (uint32_t)slot;
+__device__ __forceinline__ uint64_t warp_min(uint64_t v) {
+  const uint32_t hi = __reduce_min_sync(kFull, (uint32_t)(v >> 32));
+  const uint32_t lo = __reduce_min_sync(
+      kFull, (uint32_t)(v >> 32) == hi ? (uint32_t)v : 0xFFFFFFFFu);
+  return ((uint64_t)hi << 32) | lo;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-merge_codesizes_kernel(const int32_t* __restrict__ freqw,
-                       const int32_t* __restrict__ active,
-                       const int32_t* __restrict__ comp,
-                       const int32_t* __restrict__ cs,
-                       const int32_t* __restrict__ nleft,
-                       int32_t* __restrict__ out, int G, int W, int steps) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= G) return;                      // the whole warp leaves
-  const int64_t base = (int64_t)row * W;
+// table_core.cuh's Warp policy on one warp, a lane a thread.
+struct DeviceWarp {
+  sjpeg::TableLane s;
+  int lane;
 
-  int32_t f[kMaxPerLane], c[kMaxPerLane], s[kMaxPerLane];
-  uint32_t act = 0;                          // bit j: slot lane + 32 j
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
-    const int slot = lane + 32 * j;
-    f[j] = 0;
-    c[j] = -1;
-    s[j] = 0;
-    if (slot < W) {
-      f[j] = freqw[base + slot];
-      c[j] = comp[base + slot];
-      s[j] = cs[base + slot];
-      if (active[base + slot]) act |= 1u << j;
-    }
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) { f(lane, s); }
+  template <typename F>
+  __device__ __forceinline__ uint32_t sum(F&& f) {
+    return __reduce_add_sync(kFull, (uint32_t)f(lane, s));
   }
+  template <typename F>
+  __device__ __forceinline__ uint64_t min(F&& f) {
+    return warp_min(f(lane, s));
+  }
+  template <typename F>
+  __device__ __forceinline__ uint32_t ballot(F&& f) {
+    return __ballot_sync(kFull, f(lane, s));
+  }
+  template <typename F>
+  __device__ __forceinline__ int32_t shfl(F&& f, int src) {
+    return __shfl_sync(kFull, (int32_t)f(lane, s), src);
+  }
+  template <typename F, typename G>
+  __device__ __forceinline__ void scan(F&& f, G&& g) {
+    int32_t v = f(lane, s);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t u = __shfl_up_sync(kFull, v, o);
+      if (lane >= o) v += u;
+    }
+    g(lane, s, v);
+  }
+  template <typename F, typename G>
+  __device__ __forceinline__ void match(F&& f, G&& g) {
+    const unsigned m = __match_any_sync(kFull, (unsigned)f(lane, s));
+    g(lane, s, __popc(m & ((1u << lane) - 1u)), __popc(m));
+  }
+  __device__ __forceinline__ void add(int32_t* p, int32_t v) {
+    atomicAdd(p, v);
+  }
+  __device__ __forceinline__ void sync() { __syncwarp(); }
+};
 
-  int left = nleft[row];
-  for (int step = 0; step < steps && left > 1; ++step, --left) {
-    u64 a = ~0ull, b = ~0ull;           // two smallest keys, a < b
-#pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      if (!((act >> j) & 1u)) continue;
-      const u64 k = key_of(f[j], lane + 32 * j);
-      if (k < a) {
-        b = a;
-        a = k;
-      } else if (k < b) {
-        b = k;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const u64 oa = __shfl_xor_sync(kFull, a, o);
-      const u64 ob = __shfl_xor_sync(kFull, b, o);
-      const u64 lo = a < oa ? a : oa, hi = a < oa ? oa : a;
-      const u64 m = b < ob ? b : ob;
-      b = hi < m ? hi : m;
-      a = lo;
-    }
-    const int i2 = (int)(uint32_t)a, i1 = (int)(uint32_t)b;
-    const uint32_t f1 = (uint32_t)(a >> 32) ^ 0x80000000u;
-#pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int slot = lane + 32 * j;
-      if (slot == i1) f[j] = (int32_t)((uint32_t)f[j] + f1);
-      if (slot == i2) act &= ~(1u << j);
-      if (c[j] == i1 || c[j] == i2) {
-        s[j] += 1;
-        c[j] = i1;
-      }
-    }
+__global__ void __launch_bounds__(32) optimal_tables_kernel(TableJobs jobs) {
+  __shared__ sjpeg::TableShared sh;
+  int r = blockIdx.x;
+  TableJob j = jobs.job[0];         // field by field, no local copy
+  if (jobs.n > 1 && r >= jobs.job[0].rows) {
+    r -= jobs.job[0].rows;
+    j = jobs.job[1];
   }
-
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
-    const int slot = lane + 32 * j;
-    if (slot < W) out[base + slot] = s[j];
-  }
+  const int64_t r64 = r;
+  const sjpeg::TableRow row{j.freq + r64 * j.width, j.lut + r64 * j.lut_size,
+                            j.bits + r64 * sjpeg::kCodeBits,
+                            j.nb_syms + r64, j.syms + r64 * j.size, j.size,
+                            j.lut_size};
+  DeviceWarp w;
+  w.lane = threadIdx.x;
+  sjpeg::table_row(w, sh, row);
 }
 
 }  // namespace
 
-// freqw, active (0/1), comp, cs [G, W] int32 and nleft [G] int32 merge
-// state; out [G, W] int32 receives the code sizes after `steps` steps.
-// W <= 320.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int sjpeg_merge_codesizes(const void* freqw, const void* active,
-                                     const void* comp, const void* cs,
-                                     const void* nleft, void* out, int G,
-                                     int W, int steps, void* stream) {
-  if (G <= 0 || W <= 0) return 0;
-  if (W > 32 * kMaxPerLane) return (int)cudaErrorInvalidValue;
-  const dim3 grid((G + kWarps - 1) / kWarps);
-  merge_codesizes_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)freqw, (const int32_t*)active, (const int32_t*)comp,
-      (const int32_t*)cs, (const int32_t*)nleft, (int32_t*)out, G, W, steps);
+// jobs[n_jobs] (n_jobs 1 or 2), each [rows, width] int32 frequency rows
+// with 1 <= size <= 256 symbols, width > size and 1 <= lut_size <= 256,
+// and its int32 outputs: lut [rows, lut_size] packed (code << 16 | length)
+// bit patterns, bits [rows, 16], nb_syms [rows], syms [rows, size].  One
+// launch on `stream` for every row of every job; returns
+// cudaGetLastError().
+extern "C" int sjpeg_optimal_tables(const TableJob* jobs, int n_jobs,
+                                    void* stream) {
+  if (n_jobs < 1 || n_jobs > kMaxTableJobs) return (int)cudaErrorInvalidValue;
+  TableJobs all{};
+  all.n = n_jobs;
+  int rows = 0;
+  for (int i = 0; i < n_jobs; ++i) {
+    const TableJob& j = jobs[i];
+    if (j.rows < 0 || j.size < 1 || j.size > sjpeg::kMaxTableSize ||
+        j.width <= j.size || j.lut_size < 1 ||
+        j.lut_size > sjpeg::kMaxTableSize)
+      return (int)cudaErrorInvalidValue;
+    all.job[i] = j;
+    rows += j.rows;
+  }
+  if (rows == 0) return 0;
+  optimal_tables_kernel<<<rows, 32, 0, (cudaStream_t)stream>>>(all);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,8 @@ JAX engine stages them off the relay (`_encode_batch_optimized`):
     MCU interleave + DC chain             _interleave_coeffs [torch]
     trellis quantization                  ops/trellis      [CUDA kernel 5]
     VLC fields + symbol frequencies       _stage_trellis_post [torch]
-  optimal tables: the merge loop          ops/merge_codesizes [CUDA kernel 4]
-    and its torch tail                    ops/huffman_device
+  optimal tables, one launch a build      ops/huffman_device,
+                                          ops/merge_codesizes [CUDA kernel 4]
   Huffman lookup + per-block pack         ops/vlc_pack     [CUDA kernel 3]
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
   fetch, stuffing, markers                bitio, headers   [host]

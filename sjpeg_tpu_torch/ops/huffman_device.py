@@ -4,8 +4,11 @@ A torch twin of sjpeg_tpu/ops/huffman_device.py: byte-exact with
 huffman.build_optimal_table + build_code_lut (the reference's
 BuildOptimalTable / BuildHuffmanTable, src/enc.cc:1311-1487 and
 :433-463), vectorized over rows so that per-image tables never leave the
-card until the DHT description is fetched with the streams.  The merge
-loop runs in the merge_codesizes kernel; everything around it is torch:
+card until the DHT description is fetched with the streams.  On CUDA
+tensors the merge_codesizes kernel builds every table of a call in one
+launch and nothing is read back; on CPU tensors `optimal_code_luts_plain`
+builds them in torch, its merge loop being
+`merge_codesizes.merge_codesizes_plain`:
 
 - a fake lowest-frequency symbol (slot `size`, freq 1) owns the all-ones
   code and is dropped at the end; its first merge absorbs it into the
@@ -22,7 +25,7 @@ loop runs in the merge_codesizes kernel; everything around it is torch:
   duplicate write resolved last-position-wins like numpy's fancy
   assignment in the host version.
 
-Frequencies must stay below 2^31 (int32, as in the JAX version).
+Frequencies are int32 and add with wraparound, as in the JAX version.
 LUTs come back as int32 tensors holding the uint32 bit patterns.
 """
 
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from ..huffman import HuffmanTable, k3_default_tables
-from .merge_codesizes import BIG, merge_codesizes
+from . import merge_codesizes
+from .merge_codesizes import BIG
 
 
 def _first_codes(bits16: torch.Tensor):
@@ -47,9 +51,13 @@ def _first_codes(bits16: torch.Tensor):
     return torch.stack(firsts, dim=1), torch.stack(cume, dim=1)
 
 
-def optimal_code_luts(freq: torch.Tensor, size: int, lut_size: int = 0,
-                      with_syms: bool = False):
-    """[G, W] int32 frequencies -> (lut [G, lut_size] int32 bit patterns,
+def optimal_code_luts_plain(freq: torch.Tensor, size: int,
+                            lut_size: int = 0, with_syms: bool = False):
+    """The plain PyTorch version of `optimal_code_luts`, on any device;
+    same arguments and results.  Its rebalance reads a device flag on the
+    host each turn (`optimal_code_luts.any_reads`).
+
+    [G, W] int32 frequencies -> (lut [G, lut_size] int32 bit patterns,
     bits [G, 16] int32, nb_syms [G] int32[, syms [G, size] int32]).
 
     `size` = symbol count (12 for DC, 256 for AC); W must be >= size+1
@@ -84,10 +92,9 @@ def optimal_code_luts(freq: torch.Tensor, size: int, lut_size: int = 0,
     comp = torch.where(do0 & (slots == size), i1f, slots).to(i32)
     nleft = nb_syms + 1 - do0[:, 0].to(i32)
 
-    # ---- merge loop: nb_active-1 steps, in the kernel ----------------
-    cs = merge_codesizes(freqw.contiguous(), active.contiguous(),
-                         comp.contiguous(), cs.contiguous(),
-                         nleft.contiguous(), max(size - 1, 1))
+    # ---- merge loop: nb_active-1 steps ------------------------------
+    cs = merge_codesizes.merge_codesizes_plain(freqw, active, comp, cs,
+                                               nleft, max(size - 1, 1))
     cs = torch.where(active0, cs.clamp(max=32), 0)        # MAX_BITS clamp
 
     # ---- length histogram + rebalance to <= 16 ----------------------
@@ -167,16 +174,42 @@ def optimal_code_luts(freq: torch.Tensor, size: int, lut_size: int = 0,
     return lut, bits16, nb_syms, syms
 
 
+def _tables(jobs):
+    """[(freq [G, W] int32, size, lut_size), ...] on one device -> for
+    each, (lut, bits, nb_syms, syms): one kernel launch for all of them on
+    CUDA tensors, the plain version on CPU tensors."""
+    if jobs[0][0].device.type == "cpu":
+        return [optimal_code_luts_plain(f, size, lut, with_syms=True)
+                for f, size, lut in jobs]
+    return merge_codesizes.optimal_tables(
+        [(f.to(torch.int32).contiguous(), size, lut)
+         for f, size, lut in jobs])
+
+
+def optimal_code_luts(freq: torch.Tensor, size: int, lut_size: int = 0,
+                      with_syms: bool = False):
+    """[G, W] int32 frequencies -> (lut [G, lut_size] int32 bit patterns,
+    bits [G, 16] int32, nb_syms [G] int32[, syms [G, size] int32]), as
+    `optimal_code_luts_plain` gives them: from one merge_codesizes launch
+    on a CUDA tensor, with no host read, and from the plain version on a
+    CPU tensor.  `size` = symbol count (12 for DC, 256 for AC); W must be
+    >= size+1 (slot `size` holds the fake symbol); lut_size 0 means
+    max(size, 16)."""
+    if lut_size == 0:
+        lut_size = size if size > 16 else 16
+    out = _tables([(freq, size, lut_size)])[0]
+    return out if with_syms else out[:3]
+
+
 optimal_code_luts.any_reads = 0
 
 
-def luts_and_desc_from_freqs(freq_dc, freq_ac, nb_tables: int = 2):
-    """[B, 2, 12+] DC and [B, 2, 256+] AC frequencies -> (dc_luts
-    [B, 2, 16], ac_luts [B, 2, 256] int32 bit patterns, nb_syms [B, 4],
-    desc = (dc_bits [B, 2, 16], ac_bits [B, 2, 16], dc_syms [B, 2, 12],
-    ac_syms [B, 2, 256])), all on the frequencies' device.  With
-    nb_tables == 1 (gray) the chroma rows get zero frequencies and zero
-    LUTs, never read by the pack."""
+def table_jobs(freq_dc, freq_ac, nb_tables: int = 2):
+    """[B, 2, 12+] DC and [B, 2, 256+] AC frequencies -> the two jobs of
+    one table build, [(DC rows [B * 2, 16], 12, 16), (AC rows [B * 2,
+    320], 256, 256)] as (int32 frequencies, size, lut_size), slot `size`
+    being the fake symbol's.  With nb_tables == 1 (gray) the chroma rows
+    get zero frequencies."""
     B = freq_dc.shape[0]
     fdc = freq_dc.reshape(B * 2, -1)[:, :12].to(torch.int32)
     fac = freq_ac.reshape(B * 2, -1)[:, :256].to(torch.int32)
@@ -186,10 +219,21 @@ def luts_and_desc_from_freqs(freq_dc, freq_ac, nb_tables: int = 2):
         fac = torch.where(keep, fac, 0)
     fdc = torch.nn.functional.pad(fdc, (0, 16 - 12))
     fac = torch.nn.functional.pad(fac, (0, 257 + 63 - 256))
-    dc_luts, dc_bits, nb_dc, dc_syms = optimal_code_luts(
-        fdc, 12, 16, with_syms=True)
-    ac_luts, ac_bits, nb_ac, ac_syms = optimal_code_luts(
-        fac, 256, 256, with_syms=True)
+    return [(fdc, 12, 16), (fac, 256, 256)]
+
+
+def luts_and_desc_from_freqs(freq_dc, freq_ac, nb_tables: int = 2):
+    """[B, 2, 12+] DC and [B, 2, 256+] AC frequencies -> (dc_luts
+    [B, 2, 16], ac_luts [B, 2, 256] int32 bit patterns, nb_syms [B, 4],
+    desc = (dc_bits [B, 2, 16], ac_bits [B, 2, 16], dc_syms [B, 2, 12],
+    ac_syms [B, 2, 256])), all on the frequencies' device, from one
+    merge_codesizes launch on CUDA tensors.  With nb_tables == 1 (gray)
+    the chroma rows get zero frequencies and zero LUTs, never read by the
+    pack."""
+    B = freq_dc.shape[0]
+    (dc_luts, dc_bits, nb_dc, dc_syms), (ac_luts, ac_bits, nb_ac,
+                                         ac_syms) = _tables(
+        table_jobs(freq_dc, freq_ac, nb_tables))
     nb = torch.cat([nb_dc.reshape(B, 2), nb_ac.reshape(B, 2)], dim=1)
     desc = (dc_bits.reshape(B, 2, 16), ac_bits.reshape(B, 2, 16),
             dc_syms.reshape(B, 2, 12), ac_syms.reshape(B, 2, 256))

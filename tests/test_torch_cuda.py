@@ -174,8 +174,8 @@ def test_stream_concat_edges_on_gpu(case):
 
 def _freq_rows(size, width, seed):
     """Frequency rows with ties, an empty row, one and two symbols,
-    Fibonacci rows (codes past 16 and past 32 bits) and values near
-    2^30."""
+    Fibonacci rows (codes past 16 and past 32 bits), values near 2^30 and
+    sums that wrap past 2^31 (the kernel's 64-bit keys)."""
     rng = np.random.RandomState(seed)
     fib = [1, 1]
     while len(fib) < 40:
@@ -188,6 +188,11 @@ def _freq_rows(size, width, seed):
         m = min(picks, size)
         r[rng.permutation(size)[:m]] = vals[:m]
         rows.append(r)
+    for _ in range(4):
+        r = np.zeros(size, np.int64)
+        n = rng.randint(3, size + 1)
+        r[rng.permutation(size)[:n]] = rng.randint(1 << 29, 1 << 31, n)
+        rows.append(r)
     out = np.zeros((len(rows), width), np.int32)
     out[:, :size] = np.stack(rows)
     return torch.from_numpy(out).cuda()
@@ -196,25 +201,46 @@ def _freq_rows(size, width, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("size,width", [(12, 16), (256, 320)])
 def test_merge_codesizes_matches_plain_on_gpu(size, width):
-    """merge_codesizes == merge_codesizes_plain on the merge states that
-    optimal_code_luts builds from adversarial rows, and the whole table
-    build gives the same LUTs either way."""
+    """The table kernel (merge_codesizes) builds the same LUTs, code-length
+    counts, symbol counts and DHT order as optimal_code_luts_plain from
+    adversarial rows, in one launch and with no host read."""
     _need_cuda()
-    states = []
-
-    def record(*args):
-        states.append(args)
-        return merge_codesizes.merge_codesizes(*args)
-
     freq = _freq_rows(size, width, 18)
-    with mock.patch.object(huffman_device, "merge_codesizes", record):
-        got = huffman_device.optimal_code_luts(freq, size, with_syms=True)
-    want = huffman_device.optimal_code_luts(freq.cpu(), size, with_syms=True)
+    launches = merge_codesizes.optimal_tables.launches
+    reads = huffman_device.optimal_code_luts.any_reads
+    got = huffman_device.optimal_code_luts(freq, size, with_syms=True)
+    assert merge_codesizes.optimal_tables.launches == launches + 1
+    assert huffman_device.optimal_code_luts.any_reads == reads
+    want = huffman_device.optimal_code_luts_plain(freq.cpu(), size,
+                                                  with_syms=True)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    for args in states:
-        assert torch.equal(merge_codesizes.merge_codesizes(*args),
-                           merge_codesizes.merge_codesizes_plain(*args))
+    on_card = huffman_device.optimal_code_luts_plain(freq, size,
+                                                     with_syms=True)
+    for g, w in zip(got, on_card):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb_tables", [1, 2])
+def test_table_build_is_one_launch_on_gpu(nb_tables):
+    """luts_and_desc_from_freqs builds the DC and the AC tables of a batch
+    in one merge_codesizes launch, equal to the CPU path's."""
+    _need_cuda()
+    dc = _freq_rows(12, 12, 19)[:12]
+    ac = _freq_rows(256, 256, 20)[:12]
+    launches = merge_codesizes.optimal_tables.launches
+    got = huffman_device.luts_and_desc_from_freqs(dc.reshape(6, 2, 12),
+                                                  ac.reshape(6, 2, 256),
+                                                  nb_tables)
+    assert merge_codesizes.optimal_tables.launches == launches + 1
+    want = huffman_device.luts_and_desc_from_freqs(
+        dc.cpu().reshape(6, 2, 12), ac.cpu().reshape(6, 2, 256), nb_tables)
+    flat = huffman_device.desc_to_flat(got[2], got[3])
+    assert torch.equal(flat.cpu(), huffman_device.desc_to_flat(want[2],
+                                                               want[3]))
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda

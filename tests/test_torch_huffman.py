@@ -25,6 +25,7 @@ from sjpeg_tpu.ops import pallas_vlc_pack as jpv
 from sjpeg_tpu.ops import quantize as jquant
 from sjpeg_tpu.params import quant_matrices_for_quality as j_qmq
 
+from chip_smoke import adversarial_freq_rows
 from sjpeg_tpu_torch import adaptive, engine, huffman, state
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch.ops import huffman_device as hd
@@ -99,6 +100,37 @@ def test_optimal_code_luts_matches_jax(size, width):
     assert bool((got[1][:, 15] > 0).any()) == (size > 16)   # rebalanced
 
 
+@pytest.mark.parametrize("size,width", [(12, 16), (256, 320)])
+def test_optimal_code_luts_plain_matches_jax_on_edge_rows(size, width):
+    """optimal_code_luts_plain == sjpeg_tpu.ops.huffman_device.
+    optimal_code_luts on the row kinds the table kernel must meet that
+    _freq_rows lacks (chip_smoke.adversarial_freq_rows): ties everywhere,
+    an empty row, one symbol at either end, Fibonacci rows past 32 bits
+    (the rebalance and the clamp), and sums that wrap past 2^31, where the
+    fake symbol lands before symbol 0; 9 rows, the shape _freq_rows gives,
+    so that the JAX function compiles once."""
+    freq = adversarial_freq_rows(size, width, 52)[
+        [0, 2, 3, 4, 10, 11, 13, 14, 15]]
+    want = jhd.optimal_code_luts(jnp.asarray(freq), size, with_syms=True)
+    merged = []                  # the merge's code sizes, slot `size` the fake
+    plain = mc.merge_codesizes_plain
+
+    def record(*args):
+        merged.append(plain(*args))
+        return merged[-1]
+
+    with mock.patch.object(mc, "merge_codesizes_plain", record):
+        got = hd.optimal_code_luts_plain(torch.from_numpy(freq), size,
+                                         with_syms=True)
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  np.asarray(want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    cs = merged[0].clamp(max=32).numpy()
+    assert ((freq[:, 0] > 0) & (cs[:, 0] > cs[:, size])).any()  # fake first
+    assert (cs[:, :size] > 16).any() == (size > 16)        # rebalanced
+
+
 @pytest.mark.parametrize("nb_tables", [1, 2])
 def test_device_tables_match_host_tables(nb_tables):
     """luts_and_desc_from_freqs -> desc_to_flat -> tables_from_flat ==
@@ -153,12 +185,13 @@ def test_merge_codesizes_plain_matches_pallas_interpret():
     interpret mode, on the merge states that optimal_code_luts hands the
     kernel for the adversarial rows (DC W = 16, AC W = 320)."""
     states = []
+    plain = mc.merge_codesizes_plain
 
     def record(*args):
         states.append(args)
-        return mc.merge_codesizes_plain(*args)
+        return plain(*args)
 
-    with mock.patch.object(hd, "merge_codesizes", record):
+    with mock.patch.object(mc, "merge_codesizes_plain", record):
         for size, width in [(12, 16), (256, 320)]:
             hd.optimal_code_luts(torch.from_numpy(_freq_rows(size, width)),
                                  size)

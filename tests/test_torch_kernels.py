@@ -1,8 +1,9 @@
 """The port's method-0 kernels: their plain PyTorch versions against the
 JAX package (XLA chain and the Pallas kernel in interpret mode), and the
 shared CUDA arithmetic compiled for the host (block_core.cuh: sample_pack's
-per-block encode, quant_pack's quantize and emit, the dense and the
-coded-position emission walks; concat_core.cuh: stream_concat's per-block
+per-block encode, the serial quantize and emit, quant_pack's coded walk
+over zigzag-staged coefficients, the dense and the coded-position emission
+walks, the zigzag lookups; concat_core.cuh: stream_concat's per-block
 placement).  Comparisons are exact.
 The CUDA launches themselves are tested in test_torch_cuda.py."""
 
@@ -129,6 +130,10 @@ def test_sample_pack_plain_matches_pallas_interpret():
 _HOST_SHIM = """
 #define __host__
 #define __device__
+// quant_emit_coded's emission never overtakes a coefficient still to be
+// read: count the reads it would have to make from the raster source
+static int source_reads = 0;
+#define SJ_CHECK_IN_PLACE(in_place) (source_reads += !(in_place))
 #include "block_core.cuh"
 #include "concat_core.cuh"
 extern "C" void quant_emit_blocks(const int32_t* coeffs, const int32_t* dc,
@@ -205,6 +210,44 @@ extern "C" int emit_coded_blocks(const int32_t* run, const int32_t* size,
   }
   return out_of_place;
 }
+// As quant_pack's kernel: each block's coefficients staged in zigzag order
+// into its word row, the quantizer rows permuted to zigzag order, then
+// quant_emit_coded in place.  Returns how many coefficients it found
+// overtaken by the stream, each of which would have to be read again from
+// its raster source.
+extern "C" int quant_emit_coded_blocks(const int32_t* coeffs,
+                                       const int32_t* dc,
+                                       const int32_t* group,
+                                       const uint32_t* iq,
+                                       const uint32_t* ib,
+                                       const uint32_t* dcl,
+                                       const uint32_t* acl, uint32_t* words,
+                                       int32_t* bits, int n) {
+  uint32_t iqz[2][64], ibz[2][64];
+  for (int g = 0; g < 2; ++g)
+    for (int k = 0; k < 64; ++k) {
+      iqz[g][k] = iq[64 * g + sjpeg::zigzag_raster(k)];
+      ibz[g][k] = ib[64 * g + sjpeg::zigzag_raster(k)];
+    }
+  source_reads = 0;
+  for (int b = 0; b < n; ++b) {
+    const int32_t* src = coeffs + 64 * (int64_t)b;
+    uint32_t* row = words + 64 * (int64_t)b;
+    for (int p = 0; p < 64; ++p)
+      row[sjpeg::zigzag_slot(p)] = (uint32_t)src[p];
+    const int g = group[b] & 1;
+    bits[b] = sjpeg::quant_emit_coded(
+        row, sjpeg::quant_coded_mask(row, iqz[g], ibz[g]), (uint32_t)dc[b],
+        iqz[g], ibz[g], dcl + 16 * g, acl + 256 * g);
+  }
+  return source_reads;
+}
+extern "C" void zigzag_tables(int32_t* raster, int32_t* slot) {
+  for (int k = 0; k < 64; ++k) {
+    raster[k] = sjpeg::zigzag_raster(k);
+    slot[k] = sjpeg::zigzag_slot(k);
+  }
+}
 // stream_concat's placement, block by block in the given direction.
 extern "C" void place_blocks(const uint32_t* words, const int32_t* bits,
                              const int64_t* offs, uint32_t* out, int n,
@@ -238,6 +281,10 @@ def host_core(tmp_path_factory):
     so.quant_emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     so.emit_coded_blocks.argtypes = so.emit_blocks.argtypes
     so.place_blocks.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    so.quant_emit_coded_blocks.argtypes = so.quant_emit_blocks.argtypes
+    so.quant_emit_coded_blocks.restype = ctypes.c_int
+    so.zigzag_tables.argtypes = [ctypes.c_void_p] * 2
+    so.zigzag_tables.restype = None
     so.encode_blocks.restype = so.emit_blocks.restype = None
     so.quant_emit_blocks.restype = so.place_blocks.restype = None
     so.emit_coded_blocks.restype = ctypes.c_int
@@ -397,7 +444,21 @@ def _quant_case(table, q):
     return c, dc, group, t, want_w, want_b
 
 
-@pytest.mark.parametrize("walk", ["dense", "coded"])
+def _quant_emit_coded(host_core, c, dc, group, tabs):
+    """quant_emit_coded_blocks' words and counts; it must read no
+    coefficient out of place."""
+    n = c.shape[0]
+    words = np.zeros((n, 64), np.uint32)
+    bits = np.zeros(n, np.int32)
+    source_reads = host_core.quant_emit_coded_blocks(
+        c.ctypes.data, dc.ctypes.data, group.ctypes.data,
+        *(a.ctypes.data for a in tabs), words.ctypes.data, bits.ctypes.data,
+        n)
+    assert source_reads == 0
+    return words, bits
+
+
+@pytest.mark.parametrize("walk", ["dense", "coded", "zigzag"])
 @pytest.mark.parametrize("table", ["k3", "optimal", "full"])
 @pytest.mark.parametrize("q", [75, 100])
 def test_quant_emit_block_long_streams_match_quant_pack_plain(host_core,
@@ -408,14 +469,19 @@ def test_quant_emit_block_long_streams_match_quant_pack_plain(host_core,
     range rows, the longest streams at q100; with K.3 tables, an optimal
     table with 16-bit codes, or a table of 32-bit pieces whose streams fill
     all 2,048 bits of the word row.  The dense walk is quant_emit_block
-    (emit_block over all 63 positions, as sample_pack and quant_pack run
-    it); the coded walk is emit_coded in place on the quantized blocks'
-    run/size/code fields, where a row of 64 pieces of 32 bits overwrites
-    every field word, each only after it was read."""
+    (emit_block over all 63 positions, as sample_pack runs it); the coded
+    walk is emit_coded in place on the quantized blocks' run/size/code
+    fields, where a row of 64 pieces of 32 bits overwrites every field
+    word, each only after it was read; the zigzag walk is quant_pack's
+    quant_emit_coded on coefficients staged in zigzag order, where the
+    stream likewise passes each coefficient's slot only after reading it,
+    runs of 16 and more and 32-bit pieces included."""
     c, dc, group, t, want_w, want_b = _quant_case(table, q)
     n = c.shape[0]
     tabs = [np.ascontiguousarray(a.numpy()) for a in t]
-    if walk == "coded":
+    if walk == "zigzag":
+        words, bits = _quant_emit_coded(host_core, c, dc, group, tabs)
+    elif walk == "coded":
         g = torch.from_numpy(group).long()
         rl = vlc.run_levels(quantize.quantize_values(
             torch.from_numpy(c), t[0].long()[g], t[1].long()[g]),
@@ -434,6 +500,46 @@ def test_quant_emit_block_long_streams_match_quant_pack_plain(host_core,
     np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
     if table == "full" and q == 100:
         assert bits.max() == 2048 and (words[:, 63] != 0).any()
+
+
+@pytest.mark.parametrize("q", [30, 75, 100])
+def test_quant_emit_coded_host_build_matches_plain(host_core, q):
+    """quant_pack.cu's per-block core (coefficients staged in zigzag order,
+    the coded mask, emit_coded in place) == quant_pack_plain on 512
+    coefficient blocks from real samples and from the int16 range, with
+    both table groups (512 x 64 values keep the plain version's torch
+    operations on one thread of a loaded test worker)."""
+    n = 512
+    rng = np.random.RandomState(75 + q)
+    samples = rng.randint(-128, 129, (n, 64)).astype(np.int32)
+    samples[: n // 4] //= 8                              # smooth: zero runs
+    samples[n // 4:n // 2, 1:] = samples[n // 4:n // 2, :1]        # flat
+    c = engine.fdct.fdct_blocks_plain(torch.from_numpy(samples)).numpy()
+    c[n // 2:] = rng.randint(-32768, 32768, (n // 2, 64)) * (
+        rng.rand(n // 2, 64) < 0.3)
+    c = np.ascontiguousarray(c, np.int32)
+    group = rng.randint(0, 2, n).astype(np.int32)
+    dc = engine.vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-2047, 2048, n)), 4).numpy()
+    t = state.tables_from_numpy(*_tables(q)[1], "cpu")
+    want_w, want_b = engine.quant_pack.quant_pack_plain(
+        *(torch.from_numpy(a) for a in (c, dc, group)), *t)
+    words, bits = _quant_emit_coded(
+        host_core, c, dc, group, [np.ascontiguousarray(a.numpy()) for a in t])
+    np.testing.assert_array_equal(bits, want_b.numpy())
+    np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
+
+
+def test_zigzag_lookups_match_the_zigzag_order(host_core):
+    """block_core.cuh's run-time zigzag lookups: zigzag_raster(k) is the
+    raster position of zigzag position k (quant_pack's permutation of the
+    quantizer rows), zigzag_slot its inverse (the staging slot of raster
+    position p)."""
+    raster = np.zeros(64, np.int32)
+    slot = np.zeros(64, np.int32)
+    host_core.zigzag_tables(raster.ctypes.data, slot.ctypes.data)
+    np.testing.assert_array_equal(raster, np.asarray(C.ZIGZAG))
+    np.testing.assert_array_equal(raster[slot], np.arange(64))
 
 
 def test_emit_coded_reads_overtaken_fields_from_their_source(host_core):
