@@ -48,7 +48,19 @@ against the plain PyTorch versions on the same card:
   (a 4032 x 3024 12-MP photo: encode_rgb methods 0 and 4, encode_yuv
   method 0, an encode_rgb size search);
 - the serving wrappers: serving (encode_pipelined over four 16 x 1024^2
-  batches vs encode_batch, and encode_many on mixed shapes vs encode_rgb).
+  batches vs encode_batch, and encode_many on mixed shapes vs encode_rgb);
+- YUV_AUTO and sharp YUV, through the sharp-YUV sweep kernel (sharp_yuv)
+  besides the kernels above.  Phases: auto_batch (a 16 x 1024^2 q75 batch
+  in which AUTO picks each of the four modes four times, with the default
+  EncoderParam, method 4, and with method 0: bytes vs the plain-forced
+  path, modes vs the host scorer, risk_stats device time), sharp_kernel
+  (the kernel vs its plain version, planes and sweep counts exact, at
+  16 x 1024^2, on the 12-MP photo, at 1000 x 751, on a batch whose images
+  stop after 2, 3 and 4 sweeps, and on a row too wide for shared memory;
+  its times), single_auto (encode_rgb on the 12-MP photo with the default
+  EncoderParam and with SHARP pinned), and cli (python -m
+  sjpeg_tpu_torch.cli on a 256^2 PPM, with and without -sharp, vs
+  --device cpu).
 
 One JSON line each.  Then the `kernels` line (each kernel's device
 microseconds a launch from a torch.profiler trace beside its CUDA-event
@@ -161,12 +173,13 @@ def stateful_hook():
 @contextlib.contextmanager
 def plain_forced():
     """Patch the engine's kernel calls with the plain versions (this
-    script only: the package itself never falls back).  fdct, quant_pack
-    and the table build are patched on their own modules, which every
-    caller reads them from."""
+    script only: the package itself never falls back).  fdct, quant_pack,
+    the table build and the sharp sweeps are patched on their own modules,
+    which every caller reads them from."""
     from sjpeg_tpu_torch.ops import (fdct, huffman_device, merge_codesizes,
-                                     quant_pack, sample_pack, stream_concat,
-                                     trellis, vlc_pack)
+                                     quant_pack, sample_pack, sharp_yuv,
+                                     stream_concat, trellis, vlc_pack)
+    from sjpeg_tpu_torch.sharp_yuv import sharp_iterate_plain
     packs = dict(
         sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
         stream_concat=mock.Mock(
@@ -181,7 +194,9 @@ def plain_forced():
                               plain_tables), \
             mock.patch.object(fdct, "fdct_blocks", fdct.fdct_blocks_plain), \
             mock.patch.object(quant_pack, "quant_pack",
-                              quant_pack.quant_pack_plain):
+                              quant_pack.quant_pack_plain), \
+            mock.patch.object(sharp_yuv, "sharp_iterate",
+                              sharp_iterate_plain):
         yield
 
 
@@ -540,6 +555,10 @@ def main() -> int:
     rows += single_phases(card, rgb, qp_long_err)
     torch.cuda.empty_cache()
     serving_phases(card, rgb)
+    torch.cuda.empty_cache()
+    rows.append(auto_sharp_phases(card, rgb, logs.get("sharp_yuv", "")))
+    torch.cuda.empty_cache()
+    cli_phase()
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1755,6 +1774,273 @@ def serving_phases(card: str, rgb: np.ndarray) -> None:
          encode_many_equals_encode_rgb=same_many)
     need(same_pipelined, "encode_pipelined equals encode_batch per batch")
     need(same_many, "encode_many equals encode_rgb per image")
+
+
+def four_mode_batch(n: int, per_mode: int) -> np.ndarray:
+    """[4 per_mode, n, n, 3] uint8 images in which YUV_AUTO picks, in turn,
+    4:0:0 (gray), 4:2:0 (a gently tinted gradient), sharp 4:2:0 (a soft
+    chroma sinusoid) and 4:4:4 (noise), each mode per_mode times."""
+    yy, xx = np.mgrid[0:n, 0:n]
+    rng = np.random.RandomState(SEED + 800)
+    out = []
+    for i in range(per_mode):
+        per = 8 + 4 * i
+        out += [np.repeat(((xx + yy + 16 * i) % 256)[..., None], 3, -1),
+                np.stack([xx * 64 // n + 96 + 8 * i, yy * 64 // n + 96,
+                          np.full_like(xx, 128 - 8 * i)], -1),
+                np.stack([128 + 40 * np.sin(xx / per), np.full_like(xx, 128),
+                          128 - 40 * np.sin(yy / (per * 1.3))], -1),
+                rng.randint(0, 256, (n, n, 3))]
+    return np.stack(out).astype(np.uint8)
+
+
+def sweep_count_batch(n: int) -> np.ndarray:
+    """Three n x n images whose sharp conversions stop after 2, 3 and 4
+    sweeps: faint noise, full-range noise, and a gradient under it."""
+    yy, xx = np.mgrid[0:n, 0:n]
+    rng = np.random.RandomState(SEED + 801)
+    return np.stack([
+        np.clip(128 + rng.randint(-10, 11, (n, n, 3)), 0, 255),
+        np.clip(128 + rng.randint(-128, 129, (n, n, 3)), 0, 255),
+        np.clip(np.stack([xx, yy, (xx + yy) // 2], -1)
+                + rng.randint(-128, 129, (n, n, 3)), 0, 255),
+    ]).astype(np.uint8)
+
+
+def ptxas_info(log: str) -> dict:
+    """Registers, spill bytes and shared memory of the one kernel of a
+    library's `-Xptxas=-v` log."""
+    def num(pattern):
+        m = re.search(pattern, log)
+        return int(m.group(1)) if m else None
+    return {"registers": num(r"Used (\d+) registers"),
+            "spill_store_bytes": num(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": num(r"(\d+) bytes spill loads"),
+            "static_smem_bytes": num(r"(\d+) bytes smem"),
+            "stack_bytes": num(r"(\d+) bytes stack frame")}
+
+
+def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
+    """YUV_AUTO and sharp YUV: auto_batch, sharp_kernel and single_auto;
+    returns the sharp_yuv kernel row."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, kernels, riskiness, sharp_yuv
+    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quant_pack,
+                                     sample_pack, stream_concat, trellis,
+                                     vlc_pack)
+    from sjpeg_tpu_torch.ops import riskiness as risk_dev
+    from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
+    from sjpeg_tpu_torch.params import EncoderParam
+
+    dev = torch.device(DEVICE)
+    counted = {"sharp_yuv": sharp_ops.sharp_iterate,
+               "sample_pack": sample_pack.sample_pack,
+               "fdct": fdct.fdct_blocks,
+               "merge_codesizes": merge_codesizes.optimal_tables,
+               "vlc_pack": vlc_pack.vlc_pack,
+               "quant_pack": quant_pack.quant_pack,
+               "trellis": trellis.trellis_quantize,
+               "stream_concat": stream_concat.stream_concat}
+
+    def run_counted(fn):
+        for k in counted.values():
+            k.launches = 0
+        out = fn()
+        return out, {k: f.launches for k, f in counted.items()}
+
+    # ---- auto_batch: every mode four times, default param and method 0 --
+    batch = four_mode_batch(WIDTH, BATCH // 4)
+    src = torch.from_numpy(batch).to(dev)
+    want_modes = [C.YUV_400, C.YUV_420, C.YUV_SHARP, C.YUV_444] * (BATCH // 4)
+    host_modes = [riskiness.riskiness(im)[0] for im in batch]
+    modes = engine.auto_modes(src)
+    stats = risk_dev.risk_stats(src)
+    cpu_stats = risk_dev.risk_stats(src[:2].cpu())
+    risk_exact = all(torch.equal(a[:2].cpu(), b)
+                     for a, b in zip(stats, cpu_stats))
+    risk_trace = device_kernels(lambda: risk_dev.risk_stats(src))
+    risk_us = sum(v["us"] for v in risk_trace.values())
+    params = {"m4_default": EncoderParam(), "m0": method0(C.YUV_AUTO)}
+    launches, same, ms, sizes = {}, {}, {}, {}
+    for name, p in params.items():
+        jpegs, launches[name] = run_counted(
+            lambda p=p: engine.encode_batch(batch, p, device=dev))
+        with plain_forced():
+            same[name] = jpegs == engine.encode_batch(batch, p, device=dev)
+        ms[name] = host_ms(lambda p=p: engine.encode_batch(batch, p,
+                                                           device=dev), 3)
+        sizes[name] = sum(len(j) for j in jpegs)
+    emit("auto_batch", gpu=card, images=BATCH, modes=modes,
+         host_scorer_modes=host_modes, risk_stats_exact_vs_cpu=risk_exact,
+         risk_stats_device_us=risk_us, launches=launches,
+         byte_equal_plain=same, bytes_total=sizes, encode_batch_ms=ms,
+         encode_batch_mpx_per_s={k: BATCH * WIDTH * HEIGHT / 1e3 / v
+                                 for k, v in ms.items()})
+    need(modes == want_modes and host_modes == want_modes,
+         "AUTO picks each mode four times, as the host scorer does")
+    need(risk_exact, "risk_stats on the card equals the CPU's")
+    need(all(same.values()), "AUTO bytes equal the plain-forced path")
+    m4, m0 = launches["m4_default"], launches["m0"]
+    need(m4["sharp_yuv"] == 1 and m0["sharp_yuv"] == 1
+         and all(m4[k] > 0 for k in ("fdct", "merge_codesizes", "vlc_pack",
+                                     "stream_concat"))
+         and m0["sample_pack"] > 0 and m0["stream_concat"] > 0,
+         "the AUTO path ran sharp_yuv, fdct, merge_codesizes, vlc_pack, "
+         "stream_concat (method 4) and sample_pack (method 0)")
+    del src, stats, cpu_stats
+
+    # ---- sharp_kernel: the kernel vs its plain version ------------------
+    photo = make_rgb(1, 3024, 4032, SEED + 600)
+    cases = {"batch_16x1024": rgb, "photo_12mp": photo,
+             "odd_1000x751": make_rgb(2, 751, 1000, SEED + 802),
+             "sweeps_2_3_4": sweep_count_batch(256),
+             "wide_ring_in_scratch": make_rgb(1, 8, 19_000, SEED + 803)}
+    errs, iters, plain_ms, setups = {}, {}, {}, {}
+    for name, imgs in cases.items():
+        planes = sharp_yuv.sharp_setup(torch.from_numpy(imgs).to(dev))
+        y, uv, ty, tuv = planes
+        ky, kuv, py, puv = y.clone(), uv.clone(), y.clone(), uv.clone()
+        k_it = sharp_ops.sharp_iterate(ky, kuv, ty, tuv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_it = sharp_yuv.sharp_iterate_plain(py, puv, ty, tuv)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        errs[name] = max_err([(ky, py), (kuv, puv), (k_it, p_it)])
+        iters[name] = k_it.tolist()
+        if name in ("batch_16x1024", "photo_12mp"):
+            setups[name] = planes
+        del ky, kuv, py, puv
+    need(iters["sweeps_2_3_4"] == [2, 3, 4], "sweep counts 2, 3 and 4")
+
+    fn = kernels.function("sharp_yuv", "sjpeg_sharp_yuv", sharp_ops._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    g2l, l2g = sharp_yuv.gamma_tensors(dev)
+    times, dev_us, chain, nbytes, ops, smem = {}, {}, {}, {}, {}, {}
+    for name, (y0, uv0, ty, tuv) in setups.items():
+        b, h, w = y0.shape
+        y, uv = y0.clone(), uv0.clone()
+        scratch = torch.empty((b, 2, w // 2, 3), dtype=torch.int32,
+                              device=dev)
+        it = torch.empty((b,), dtype=torch.int32, device=dev)
+
+        def restore():
+            y.copy_(y0)
+            uv.copy_(uv0)
+
+        def launch():
+            kernels.check(fn(y.data_ptr(), uv.data_ptr(), ty.data_ptr(),
+                             tuv.data_ptr(), g2l.data_ptr(), l2g.data_ptr(),
+                             scratch.data_ptr(), it.data_ptr(), b, w, h,
+                             stream), "sharp_yuv")
+
+        reps = []
+        for _ in range(6):               # one warm-up, then five
+            restore()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch()
+            stop.record()
+            stop.synchronize()
+            reps.append(start.elapsed_time(stop))
+        times[name] = statistics.median(reps[1:])
+        dev_us[name] = kernel_us(lambda: (restore(), launch()), "sharp_yuv",
+                                 calls=3)
+        sweeps = sum(iters[name])
+        # a sweep reads y, ty, uv, tuv once and writes y and uv once: 21
+        # bytes a pixel; ~45 operations a pixel (the filter, 3 lookups, the
+        # gray, the interpolated inverse, the update, a quarter of the
+        # chroma's 2x2 mean)
+        nbytes[name] = 21 * h * w * sweeps
+        ops[name] = 45 * h * w * sweeps
+        chain[name] = (h // 2) * max(iters[name])
+        # the gamma tables and the two-row ring of updated chroma
+        smem[name] = 4 * (1024 + 34 + 2 * (w // 2) * 3)
+    emit("sharp_kernel", gpu=card, max_abs_err=errs, sweeps=iters,
+         ms=times, device_us=dev_us, plain_ms=plain_ms,
+         dependent_row_pair_steps=chain, dynamic_smem_bytes=smem,
+         bound_ms={k: max(nbytes[k] / H100_BYTES_PER_S,
+                          ops[k] / H100_OPS_PER_S) * 1e3 for k in times},
+         build=ptxas_info(build_log))
+    need(max(errs.values()) == 0,
+         "sharp_yuv exact against its plain version")
+    del setups
+
+    # ---- single_auto: encode_rgb on the 12-MP photo ---------------------
+    runs = {"default": EncoderParam(),
+            "sharp": EncoderParam(yuv_mode=C.YUV_SHARP)}
+    s_same, s_ms, s_launches, s_bytes = {}, {}, {}, {}
+    for name, p in runs.items():
+        jpeg, s_launches[name] = run_counted(
+            lambda p=p: engine.encode_rgb(photo[0], p, device=dev))
+        with plain_forced():
+            s_same[name] = jpeg == engine.encode_rgb(photo[0], p, device=dev)
+        s_ms[name] = host_ms(lambda p=p: engine.encode_rgb(photo[0], p,
+                                                           device=dev), 3)
+        s_bytes[name] = len(jpeg)
+    emit("single_auto", gpu=card, width=4032, height=3024,
+         auto_mode=engine.auto_modes(torch.from_numpy(photo).to(dev))[0],
+         launches=s_launches, bytes=s_bytes, byte_equal_plain=s_same,
+         ms=s_ms)
+    need(all(s_same.values()), "single-image AUTO and SHARP bytes equal "
+         "the plain-forced path")
+    need(s_launches["sharp"]["sharp_yuv"] == 1
+         and s_launches["sharp"]["fdct"] > 0,
+         "encode_rgb SHARP ran sharp_yuv and fdct")
+
+    name = "batch_16x1024"
+    return kernel_row("sharp_yuv", "sjpeg_tpu_torch/csrc/sharp_yuv.cu",
+                      "sjpeg_tpu/sharp_yuv_device.py:135-204",
+                      launches["m4_default"]["sharp_yuv"], max(errs.values()),
+                      times[name], plain_ms[name], nbytes[name], ops[name],
+                      device_us=dev_us[name], sweeps=iters[name],
+                      dependent_row_pair_steps=chain[name],
+                      photo_12mp_ms=times["photo_12mp"],
+                      photo_12mp_device_us=dev_us["photo_12mp"],
+                      photo_12mp_plain_ms=plain_ms["photo_12mp"],
+                      dynamic_smem_bytes=smem[name],
+                      **ptxas_info(build_log))
+
+
+def cli_phase() -> None:
+    """python -m sjpeg_tpu_torch.cli on a 256 x 256 PPM, with and without
+    -sharp, on the card (two processes at once) against --device cpu."""
+    from sjpeg_tpu_torch import cli, kernels
+
+    work = kernels.BUILD_DIR / "cli_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    img = make_rgb(1, 256, 256, SEED + 900)[0]
+    ppm = work / "in.ppm"
+    ppm.write_bytes(b"P6\n256 256\n255\n" + img.tobytes())
+    flag_sets = {"default": [], "sharp": ["-sharp"]}
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "sjpeg_tpu_torch.cli", str(ppm), "-o",
+         str(work / f"{name}_cuda.jpg"), "-quiet", *flags],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, flags in flag_sets.items()}
+    same, rcs = {}, {}
+    try:
+        for name, flags in flag_sets.items():
+            need(cli.main([str(ppm), "-o", str(work / f"{name}_cpu.jpg"),
+                           "-quiet", "--device", "cpu", *flags]) == 0,
+                 "the CLI on the CPU")
+        for name, proc in procs.items():
+            out = proc.communicate(timeout=300)[0]
+            rcs[name] = proc.returncode
+            if proc.returncode:
+                print(out, file=sys.stderr)
+            same[name] = (proc.returncode == 0
+                          and (work / f"{name}_cuda.jpg").read_bytes()
+                          == (work / f"{name}_cpu.jpg").read_bytes())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit("cli", width=256, height=256, exit_codes=rcs,
+         cuda_equals_cpu=same)
+    need(all(same.values()), "the CLI's bytes on the card equal --device cpu")
 
 
 if __name__ == "__main__":

@@ -204,3 +204,5 @@ YUV_444 = 3
 YUV_400 = 4     # grayscale
 
 MAX_DIMENSION = 65535  # JPEG SOF fields are 16-bit
+
+SJPEG_TPU_VERSION = (0, 1, 0)  # the version the CLI prints, as sjpeg_tpu

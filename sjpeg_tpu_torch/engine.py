@@ -49,14 +49,23 @@ passes > 1 runs the single-image search (engine_search.encode_search_one,
 the hook on the host).  `encode_pipelined` and `encode_many` are the
 serving wrappers over `encode_batch`.
 
+From RGB, YUV_AUTO picks each image's mode from its riskiness
+(ops/riskiness.risk_stats on the uploaded batch, one fetch of three values
+an image; the host scorer when the exact table is active), and a batch
+runs as one sub-batch per mode.  YUV_SHARP converts on the card first:
+
+  sharp set-up and reconstruction         sharp_yuv        [torch]
+  Gauss-Seidel sweeps, per-image exit     ops/sharp_yuv    [CUDA kernel 8]
+
+and encodes the planes as 4:2:0.
+
 Every entry point takes `device`: None means "cuda", and it raises when
 CUDA is missing.  With device="cpu" the kernels' plain PyTorch versions
 run instead, which is how the tests hold the port against the JAX package.
-Configurations the port does not run yet raise NotImplementedError naming
-their ROADMAP item.
 """
 
 import collections
+import dataclasses
 import math
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -66,13 +75,14 @@ import numpy as np
 import torch
 
 from . import constants as C
-from . import headers, pipeline, spec, state
+from . import headers, pipeline, riskiness, sharp_yuv, spec, state
 from .adaptive import analyse_histo
 from .bitio import words_to_scan
 from .huffman import (build_code_lut, k3_default_tables,
                       optimal_tables_from_freqs, trellis_cost_lens)
 from .ops import colorspace, fdct, huffman_device, pack, quant_pack, \
     quantize, sample_pack, stream_concat, trellis, vlc, vlc_pack
+from .ops import riskiness as risk_device
 from .params import TARGET_NONE, EncoderParam, method_flags
 
 
@@ -91,11 +101,14 @@ def _is_search(param: EncoderParam) -> bool:
     return param.passes > 1 and param.target_mode != TARGET_NONE
 
 
-def _check_supported(param: EncoderParam, yuv_mode: int) -> None:
-    if yuv_mode in (C.YUV_AUTO, C.YUV_SHARP):
-        raise NotImplementedError(
-            "YUV_AUTO and YUV_SHARP are not ported yet (ROADMAP A8); pin "
-            "YUV_420, YUV_444 or YUV_400")
+def auto_modes(src: torch.Tensor) -> list:
+    """The YUV mode that YUV_AUTO picks for each image of a [B, H, W, 3]
+    uint8 batch on any device: the riskiness reduction where the batch
+    lies, or, with the exact table active, the host scorer."""
+    if riskiness.exact_table_active():
+        rgb = src.cpu().numpy()
+        return [riskiness.riskiness(im)[0] for im in rgb]
+    return [mode for mode, _ in risk_device.batch_riskiness(src)]
 
 
 def _check_size(w: int, h: int) -> None:
@@ -167,23 +180,52 @@ def encode_batch_core(src, iquant, ibias, dc_luts, ac_luts, *,
 def encode_batch(rgbs, param: Optional[EncoderParam] = None,
                  bits_per_pixel_budget: float = 4.0,
                  share_statistics: bool = False, device=None):
-    """Encode a uint8 batch [B, H, W, 3] (numpy or torch) with pinned
-    YUV_420, YUV_444 or YUV_400 and method 0, 1, 3, 4 or 7.  Returns a list
-    of complete JPEG byte strings, byte-identical to
-    sjpeg_tpu.engine.encode_batch.
+    """Encode a uint8 batch [B, H, W, 3] (numpy or torch) with any YUV mode
+    and method 0, 1, 3, 4 or 7.  Returns a list of complete JPEG byte
+    strings, byte-identical to sjpeg_tpu.engine.encode_batch.
 
-    Methods 1, 3, 4 and 7 optimize per image by default (per-image adaptive
-    matrices and per-image optimal Huffman tables, as the reference
-    does); share_statistics=True derives one table set / tuned matrix
-    pair from the whole batch's statistics instead.  With passes > 1 and
-    set_target_size / set_target_psnr, each image runs its own search
-    (share_statistics does not apply)."""
+    With YUV_AUTO (the default) each image picks its own mode and the batch
+    runs as one sub-batch per mode, in the order the modes first appear;
+    the results come back in input order.  Methods 1, 3, 4 and 7 optimize
+    per image by default (per-image adaptive matrices and per-image optimal
+    Huffman tables, as the reference does); share_statistics=True derives
+    one table set / tuned matrix pair from each (sub-)batch's statistics
+    instead.  With passes > 1 and set_target_size / set_target_psnr, each
+    image runs its own search (share_statistics does not apply)."""
     param = param or EncoderParam()
-    dev = resolve_device(device)
-    h, w = rgbs.shape[1:3]
-    return _encode_batch_src(_to_device(rgbs, dev), "rgb", param.yuv_mode,
-                             w, h, param, bits_per_pixel_budget,
+    src = _to_device(rgbs, resolve_device(device))
+    return _encode_rgb_batch(src, param, bits_per_pixel_budget,
                              share_statistics)
+
+
+def _encode_rgb_batch(src: torch.Tensor, param: EncoderParam,
+                      bits_per_pixel_budget: float, share_statistics: bool):
+    """encode_batch over a device batch: the AUTO split (each sub-batch
+    indexed on the device, no second upload) and the sharp conversion."""
+    b, h, w = src.shape[:3]
+    _check_size(w, h)
+    yuv_mode = param.yuv_mode
+    if yuv_mode == C.YUV_AUTO:
+        groups = {}
+        for i, m in enumerate(auto_modes(src)):
+            groups.setdefault(m, []).append(i)
+        if len(groups) > 1:
+            out = [None] * b
+            for m, idxs in groups.items():
+                sub = src[torch.tensor(idxs, device=src.device)]
+                res = _encode_rgb_batch(
+                    sub, dataclasses.replace(param, yuv_mode=m),
+                    bits_per_pixel_budget, share_statistics)
+                for i, jpeg in zip(idxs, res):
+                    out[i] = jpeg
+            return out
+        yuv_mode = next(iter(groups))
+    if yuv_mode == C.YUV_SHARP:
+        return _encode_batch_src(sharp_yuv.sharp_rgb_to_yuv420(src),
+                                 "planes", C.YUV_420, w, h, param,
+                                 bits_per_pixel_budget, share_statistics)
+    return _encode_batch_src(src, "rgb", yuv_mode, w, h, param,
+                             bits_per_pixel_budget, share_statistics)
 
 
 def encode_batch_yuv(y, u, v, is_420: bool,
@@ -260,8 +302,7 @@ def _encode_batch_src(src, src_kind: str, yuv_mode: int, w: int, h: int,
                       bits_per_pixel_budget: float = 4.0,
                       share_statistics: bool = False):
     """Shared batched encode over a device source (RGB batch or
-    component plane tuple)."""
-    _check_supported(param, yuv_mode)
+    component plane tuple) with a resolved YUV mode."""
     _check_size(w, h)
     if _is_search(param) and param.search_hook is not None:
         return _encode_each_with_hook(src, src_kind, yuv_mode, param)
@@ -805,22 +846,29 @@ def _encode_blocks_device(src, src_kind: str, yuv_mode: int, w: int, h: int,
 
 def encode_rgb(rgb, param: Optional[EncoderParam] = None,
                device=None) -> bytes:
-    """Encode one RGB uint8 image [H, W, 3] (numpy or torch) with pinned
-    YUV_420, YUV_444 or YUV_400; byte-identical to
-    sjpeg_tpu.engine.encode_rgb.  Method 0 without a search runs the
-    method-0 batch path with one image; the rest is staged."""
+    """Encode one RGB uint8 image [H, W, 3] (numpy or torch) with any YUV
+    mode; byte-identical to sjpeg_tpu.engine.encode_rgb.  YUV_AUTO picks
+    the mode from the riskiness of the device copy; YUV_SHARP converts on
+    the card and encodes the planes through encode_yuv.  Method 0 without
+    a search runs the method-0 batch path with one image; the rest is
+    staged."""
     param = param or EncoderParam()
     dev = resolve_device(device)
     h, w = rgb.shape[:2]
-    _check_supported(param, param.yuv_mode)
     _check_size(w, h)
     src = _to_device(rgb, dev)[None]
+    yuv_mode = param.yuv_mode
+    if yuv_mode == C.YUV_AUTO:
+        yuv_mode = auto_modes(src)[0]
+    if yuv_mode == C.YUV_SHARP:
+        y, u, v = sharp_yuv.sharp_rgb_to_yuv420(src)
+        return encode_yuv(y[0], u[0], v[0], True, param, dev)
     flags = method_flags(param.method)
     if not (flags["use_adaptive_quant"] or flags["optimize_size"]
             or _is_search(param)):
-        return _encode_batch_src(src, "rgb", param.yuv_mode, w, h, param,
+        return _encode_batch_src(src, "rgb", yuv_mode, w, h, param,
                                  bits_per_pixel_budget=math.inf)[0]
-    return _encode_blocks_device(src, "rgb", param.yuv_mode, w, h, param)
+    return _encode_blocks_device(src, "rgb", yuv_mode, w, h, param)
 
 
 def encode_gray(gray, param: Optional[EncoderParam] = None,

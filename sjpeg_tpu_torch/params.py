@@ -3,9 +3,8 @@
 `EncoderParam` mirrors the capability surface of the reference's parameter
 object (src/sjpeg.h:187-275).  The compression "method" 0..8 is the same
 preset bundle of four booleans (src/enc.cc:199-207, sjpeg.h:77-99).  The
-port runs methods 0, 1, 3, 4 and 7 and the batched target-size /
-target-PSNR search with the default hook; the engine rejects what it does
-not run (a custom search hook, AUTO and sharp YUV) by name.
+port runs methods 0, 1, 3, 4 and 7, every YUV mode, and the target-size /
+target-PSNR searches with the default or a custom hook.
 """
 
 import dataclasses

@@ -1,10 +1,11 @@
-"""Quantizer finalization and bit lengths, copied from the JAX package's
-NumPy oracle.
+"""Quantizer finalization, bit lengths and the YUV 4:4:4 conversion,
+copied from the JAX package's NumPy oracle.
 
 `finalize_quant_matrix` turns a [64] quantization matrix into the
 reciprocal multipliers and biases the device quantizer uses (reference
 src/enc.cc:327-330, 598-630); `calc_log2` is the bit length the adaptive
-quantizer's fit needs.
+quantizer's fit needs; `rgb_to_yuv444` is the fixed-point conversion the
+block riskiness map reads.
 """
 
 import numpy as np
@@ -43,3 +44,14 @@ def finalize_quant_matrix(quant: np.ndarray, min_quant: np.ndarray,
         "bias": ibias.astype(np.uint16),
         "qthresh": qthresh.astype(np.uint16),
     }
+
+
+def rgb_to_yuv444(rgb: np.ndarray):
+    """[H, W, 3] uint8 -> three [H, W] int32 planes, centered on 0."""
+    r = rgb[..., 0].astype(np.int64)
+    g = rgb[..., 1].astype(np.int64)
+    b = rgb[..., 2].astype(np.int64)
+    y = (19595 * r + 38469 * g + 7471 * b + C.ROUND_Y) >> C.YUV_FRAC
+    u = (-11059 * r - 21709 * g + 32768 * b + C.YUV_HALF) >> C.YUV_FRAC
+    v = (32768 * r - 27439 * g - 5329 * b + C.YUV_HALF) >> C.YUV_FRAC
+    return (y.astype(np.int32), u.astype(np.int32), v.astype(np.int32))

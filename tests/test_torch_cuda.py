@@ -14,11 +14,13 @@ import torch
 
 from chip_smoke import random_streams
 from sjpeg_tpu_torch import constants as C
-from sjpeg_tpu_torch import engine, state
+from sjpeg_tpu_torch import engine, sharp_yuv, state
 from sjpeg_tpu_torch.huffman import k3_default_tables, trellis_cost_lens
 from sjpeg_tpu_torch.ops import (colorspace, fdct, huffman_device,
                                  merge_codesizes, quant_pack, sample_pack,
                                  stream_concat, trellis, vlc, vlc_pack)
+from sjpeg_tpu_torch.ops import riskiness as risk_dev
+from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
 from sjpeg_tpu_torch.params import EncoderParam
 
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
@@ -529,3 +531,52 @@ def test_encode_pipelined_two_streams_on_gpu():
     assert len(seen) == 2
     assert torch.cuda.default_stream().cuda_stream not in seen
     assert got == [engine.encode_batch(b, param) for b in batches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, h, w", [(3, 17, 33), (2, 6, 6), (2, 96, 2050),
+                                     (1, 8, 19_000)])
+def test_sharp_yuv_matches_plain_on_gpu(b, h, w):
+    """The sweep kernel == its plain version, planes and sweep counts: odd
+    sizes, the smallest, a row wider than the CTA (threads stride), and a
+    row too wide for the shared ring (the caller's scratch)."""
+    _need_cuda()
+    rgb = np.random.RandomState(33).randint(0, 256, (b, h, w, 3)).astype(
+        np.uint8)
+    rgb[0] = 128
+    y, uv, ty, tuv = sharp_yuv.sharp_setup(torch.from_numpy(rgb).cuda())
+    py, puv = y.clone(), uv.clone()
+    it = sharp_ops.sharp_iterate(y, uv, ty, tuv)
+    pit = sharp_yuv.sharp_iterate_plain(py, puv, ty, tuv)
+    assert torch.equal(it, pit) and torch.equal(y, py) and torch.equal(uv,
+                                                                       puv)
+
+
+@pytest.mark.cuda
+def test_auto_batch_gpu_matches_cpu():
+    """Every AUTO mode in one batch (gray, a tinted gradient, a chroma
+    sinusoid, noise), method 4 and method 0: the card's bytes == the CPU
+    path's, and risk_stats agree."""
+    _need_cuda()
+    n = 408
+    yy, xx = np.mgrid[0:n, 0:n]
+    rgb = np.stack([
+        np.repeat(((xx + yy) % 256)[..., None], 3, -1),
+        np.stack([xx * 64 // n + 96, yy * 64 // n + 96, 128 + 0 * xx], -1),
+        np.stack([128 + 40 * np.sin(xx / 8), 128 + 0 * xx,
+                  128 - 40 * np.sin(yy / 10.4)], -1),
+        np.random.RandomState(34).randint(0, 256, (n, n, 3)),
+    ]).astype(np.uint8)
+    src = torch.from_numpy(rgb)
+    assert engine.auto_modes(src.cuda()) == [C.YUV_400, C.YUV_420,
+                                             C.YUV_SHARP, C.YUV_444]
+    for got, want in zip(risk_dev.risk_stats(src.cuda()),
+                         risk_dev.risk_stats(src)):
+        assert torch.equal(got.cpu(), want)
+    for param in (EncoderParam(), EncoderParam(huffman_compress=False,
+                                               adaptive_quantization=False)):
+        assert (engine.encode_batch(rgb, param)
+                == engine.encode_batch(rgb, param, device="cpu"))
+    param = EncoderParam(yuv_mode=C.YUV_SHARP)
+    assert (engine.encode_rgb(rgb[2], param)
+            == engine.encode_rgb(rgb[2], param, device="cpu"))

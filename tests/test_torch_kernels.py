@@ -621,25 +621,22 @@ def test_port_imports_neither_jax_nor_sjpeg_tpu():
     dict(huffman_compress=False, yuv_mode=C.YUV_AUTO),
     dict(huffman_compress=False, adaptive_quantization=False,
          yuv_mode=C.YUV_SHARP),
-    dict(yuv_mode=C.YUV_420, search_hook=SearchHook(),      # A4, ported
+    dict(yuv_mode=C.YUV_420, search_hook=SearchHook(),      # A4
          target_mode=TARGET_SIZE, target_value=900.0, passes=3,
          huffman_compress=False, adaptive_quantization=False),
     dict(yuv_mode=C.YUV_AUTO, target_mode=TARGET_SIZE,      # A8
          target_value=900.0, passes=3),
 ])
 def test_unported_configurations_raise(kw):
+    """Configurations that once raised, each now ported (the name predates
+    the ports): AUTO, SHARP (A8) and a custom search hook (A4) through
+    encode_batch give the JAX engine's bytes."""
+    from sjpeg_tpu.params import EncoderParam as JaxParam
+    from sjpeg_tpu.params import SearchHook as JHook
     rgb = np.zeros((1, 16, 16, 3), np.uint8)
-    if "search_hook" in kw:
-        # A4 is ported: a custom hook runs the single-image search per
-        # image, with the JAX engine's bytes
-        from sjpeg_tpu.params import EncoderParam as JaxParam
-        from sjpeg_tpu.params import SearchHook as JHook
-        jp = JaxParam(**dict(kw, search_hook=JHook()))
-        assert (engine.encode_batch(rgb, EncoderParam(**kw), device="cpu")
-                == jengine.encode_batch(rgb, jp))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        engine.encode_batch(rgb, EncoderParam(**kw), device="cpu")
+    jkw = dict(kw, search_hook=JHook()) if "search_hook" in kw else kw
+    assert (engine.encode_batch(rgb, EncoderParam(**kw), device="cpu")
+            == jengine.encode_batch(rgb, JaxParam(**jkw)))
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -1,6 +1,7 @@
 """The port's single-image API against the JAX package's, byte for byte:
 encode_rgb, encode_gray, encode_yuv and encode for methods 0, 1, 3, 4 and
-7 at pinned 4:2:0, 4:4:4 and 4:0:0, and the single-image target-size and
+7 at pinned 4:2:0, 4:4:4 and 4:0:0 (and AUTO and SHARP once each), and
+the single-image target-size and
 target-PSNR searches, on device="cpu" (the kernels' plain versions).  The
 JAX side compiles its one-image stages once per geometry, so three tiny
 geometries serve every case: RGB 40 x 24, RGB 33 x 17 and gray 16 x 16."""
@@ -138,5 +139,8 @@ def test_encode_matches_jax():
 
 @pytest.mark.parametrize("mode", [C.YUV_AUTO, C.YUV_SHARP])
 def test_auto_and_sharp_raise_naming_a8(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        engine.encode_rgb(RGB, EncoderParam(yuv_mode=mode), device="cpu")
+    """AUTO and SHARP (ROADMAP A8, ported; the name predates the port):
+    encode_rgb with method 4 gives the JAX engine's bytes."""
+    jp, tp = _params(4, yuv_mode=mode)
+    _same(engine.encode_rgb(RGB, tp, device="cpu"),
+          jengine.encode_rgb(RGB, jp))
