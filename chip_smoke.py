@@ -49,16 +49,21 @@ against the plain PyTorch versions on the same card:
   method 0, an encode_rgb size search);
 - the serving wrappers: serving (encode_pipelined over four 16 x 1024^2
   batches vs encode_batch, and encode_many on mixed shapes vs encode_rgb);
-- YUV_AUTO and sharp YUV, through the sharp-YUV sweep kernel (sharp_yuv)
+- YUV_AUTO and sharp YUV, through the riskiness kernel (risk_stats) and
+  the sharp-YUV sweep kernel (sharp_yuv, a thread-block cluster an image)
   besides the kernels above.  Phases: auto_batch (a 16 x 1024^2 q75 batch
   in which AUTO picks each of the four modes four times, with the default
   EncoderParam, method 4, and with method 0: bytes vs the plain-forced
-  path, modes vs the host scorer, risk_stats device time), sharp_kernel
-  (the kernel vs its plain version, planes and sweep counts exact, at
-  16 x 1024^2, on the 12-MP photo, at 1000 x 751, on a batch whose images
-  stop after 2, 3 and 4 sweeps, and on a row too wide for shared memory;
-  its times), single_auto (encode_rgb on the 12-MP photo with the default
-  EncoderParam and with SHARP pinned), and cli (python -m
+  path, modes vs the host scorer, one risk_stats launch a batch and its
+  device time), sharp_kernel (the kernel vs its plain version, planes and
+  sweep counts exact, at 16 x 1024^2, on the 12-MP photo, on the AUTO
+  batch's four sharp images, at 1000 x 751, on a batch whose images stop
+  after 2, 3 and 4 sweeps, and on a 19,000-wide row whose slices are
+  wider than their CTAs; each shape's cluster plan, and the times of the
+  first three), risk_kernel (the riskiness kernel vs its plain version on
+  the AUTO batch, the main batch, the photo, one row, one column and a
+  2 x 2 image; its times), single_auto (encode_rgb on the 12-MP photo with
+  the default EncoderParam and with SHARP pinned), and cli (python -m
   sjpeg_tpu_torch.cli on a 256^2 PPM, with and without -sharp, vs
   --device cpu).
 
@@ -556,7 +561,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_phases(card, rgb)
     torch.cuda.empty_cache()
-    rows.append(auto_sharp_phases(card, rgb, logs.get("sharp_yuv", "")))
+    rows += auto_sharp_phases(card, rgb, logs)
     torch.cuda.empty_cache()
     cli_phase()
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1807,9 +1812,14 @@ def sweep_count_batch(n: int) -> np.ndarray:
     ]).astype(np.uint8)
 
 
-def ptxas_info(log: str) -> dict:
-    """Registers, spill bytes and shared memory of the one kernel of a
-    library's `-Xptxas=-v` log."""
+def ptxas_info(log: str, entry: str = "") -> dict:
+    """Registers, spill bytes, shared memory and stack of the first kernel
+    of a library's `-Xptxas=-v` log whose mangled name holds `entry`."""
+    for part in log.split("Compiling entry function")[1:]:
+        if entry in part.split("'")[1]:
+            log = part
+            break
+
     def num(pattern):
         m = re.search(pattern, log)
         return int(m.group(1)) if m else None
@@ -1820,9 +1830,25 @@ def ptxas_info(log: str) -> dict:
             "stack_bytes": num(r"(\d+) bytes stack frame")}
 
 
-def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
-    """YUV_AUTO and sharp YUV: auto_batch, sharp_kernel and single_auto;
-    returns the sharp_yuv kernel row."""
+def launch_ms(restore, launch, reps: int = 5) -> float:
+    """Median of `reps` CUDA-event timings of launch() alone, after one
+    warm-up, with restore() run before each, outside the events."""
+    times = []
+    for _ in range(reps + 1):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times[1:])
+
+
+def auto_sharp_phases(card: str, rgb: np.ndarray, logs: dict) -> list:
+    """YUV_AUTO and sharp YUV: auto_batch, sharp_kernel, risk_kernel and
+    single_auto; returns the sharp_yuv and risk_stats kernel rows."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, riskiness, sharp_yuv
     from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quant_pack,
@@ -1834,6 +1860,7 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
 
     dev = torch.device(DEVICE)
     counted = {"sharp_yuv": sharp_ops.sharp_iterate,
+               "risk_stats": risk_dev.risk_stats,
                "sample_pack": sample_pack.sample_pack,
                "fdct": fdct.fdct_blocks,
                "merge_codesizes": merge_codesizes.optimal_tables,
@@ -1858,8 +1885,8 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
     cpu_stats = risk_dev.risk_stats(src[:2].cpu())
     risk_exact = all(torch.equal(a[:2].cpu(), b)
                      for a, b in zip(stats, cpu_stats))
-    risk_trace = device_kernels(lambda: risk_dev.risk_stats(src))
-    risk_us = sum(v["us"] for v in risk_trace.values())
+    risk_trace = device_kernels(lambda: risk_dev.risk_stats(src), 20)
+    risk_event_ms = event_ms(lambda: risk_dev.risk_stats(src), 20)
     params = {"m4_default": EncoderParam(), "m0": method0(C.YUV_AUTO)}
     launches, same, ms, sizes = {}, {}, {}, {}
     for name, p in params.items():
@@ -1872,8 +1899,12 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
         sizes[name] = sum(len(j) for j in jpegs)
     emit("auto_batch", gpu=card, images=BATCH, modes=modes,
          host_scorer_modes=host_modes, risk_stats_exact_vs_cpu=risk_exact,
-         risk_stats_device_us=risk_us, launches=launches,
-         byte_equal_plain=same, bytes_total=sizes, encode_batch_ms=ms,
+         risk_stats_device_us=kernel_us(None, "risk_stats",
+                                        trace=risk_trace),
+         risk_stats_op_device_us=sum(v["us"] for v in risk_trace.values()),
+         risk_stats_event_us=risk_event_ms * 1e3,
+         launches=launches, byte_equal_plain=same, bytes_total=sizes,
+         encode_batch_ms=ms,
          encode_batch_mpx_per_s={k: BATCH * WIDTH * HEIGHT / 1e3 / v
                                  for k, v in ms.items()})
     need(modes == want_modes and host_modes == want_modes,
@@ -1882,23 +1913,28 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
     need(all(same.values()), "AUTO bytes equal the plain-forced path")
     m4, m0 = launches["m4_default"], launches["m0"]
     need(m4["sharp_yuv"] == 1 and m0["sharp_yuv"] == 1
+         and m4["risk_stats"] == 1 and m0["risk_stats"] == 1
          and all(m4[k] > 0 for k in ("fdct", "merge_codesizes", "vlc_pack",
                                      "stream_concat"))
          and m0["sample_pack"] > 0 and m0["stream_concat"] > 0,
-         "the AUTO path ran sharp_yuv, fdct, merge_codesizes, vlc_pack, "
-         "stream_concat (method 4) and sample_pack (method 0)")
+         "the AUTO path ran risk_stats and sharp_yuv once, fdct, "
+         "merge_codesizes, vlc_pack, stream_concat (method 4) and "
+         "sample_pack (method 0)")
     del src, stats, cpu_stats
 
     # ---- sharp_kernel: the kernel vs its plain version ------------------
     photo = make_rgb(1, 3024, 4032, SEED + 600)
     cases = {"batch_16x1024": rgb, "photo_12mp": photo,
+             "auto_sharp_4x1024": batch[2::4],
              "odd_1000x751": make_rgb(2, 751, 1000, SEED + 802),
              "sweeps_2_3_4": sweep_count_batch(256),
-             "wide_ring_in_scratch": make_rgb(1, 8, 19_000, SEED + 803)}
-    errs, iters, plain_ms, setups = {}, {}, {}, {}
+             "wide_19000x8": make_rgb(1, 8, 19_000, SEED + 803)}
+    timed = ("batch_16x1024", "photo_12mp", "auto_sharp_4x1024")
+    errs, iters, plain_ms, setups, plans = {}, {}, {}, {}, {}
     for name, imgs in cases.items():
         planes = sharp_yuv.sharp_setup(torch.from_numpy(imgs).to(dev))
         y, uv, ty, tuv = planes
+        plans[name] = sharp_ops.plan(*y.shape)
         ky, kuv, py, puv = y.clone(), uv.clone(), y.clone(), uv.clone()
         k_it = sharp_ops.sharp_iterate(ky, kuv, ty, tuv)
         torch.cuda.synchronize()
@@ -1908,20 +1944,19 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
         plain_ms[name] = (time.perf_counter() - t0) * 1e3
         errs[name] = max_err([(ky, py), (kuv, puv), (k_it, p_it)])
         iters[name] = k_it.tolist()
-        if name in ("batch_16x1024", "photo_12mp"):
+        if name in timed:
             setups[name] = planes
         del ky, kuv, py, puv
     need(iters["sweeps_2_3_4"] == [2, 3, 4], "sweep counts 2, 3 and 4")
 
-    fn = kernels.function("sharp_yuv", "sjpeg_sharp_yuv", sharp_ops._ARGTYPES)
+    fn = kernels.function("sharp_yuv", "sjpeg_sharp_yuv_cluster",
+                          sharp_ops._ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
     g2l, l2g = sharp_yuv.gamma_tensors(dev)
-    times, dev_us, chain, nbytes, ops, smem = {}, {}, {}, {}, {}, {}
+    times, dev_us, chain, nbytes, ops = {}, {}, {}, {}, {}
     for name, (y0, uv0, ty, tuv) in setups.items():
         b, h, w = y0.shape
         y, uv = y0.clone(), uv0.clone()
-        scratch = torch.empty((b, 2, w // 2, 3), dtype=torch.int32,
-                              device=dev)
         it = torch.empty((b,), dtype=torch.int32, device=dev)
 
         def restore():
@@ -1931,20 +1966,9 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
         def launch():
             kernels.check(fn(y.data_ptr(), uv.data_ptr(), ty.data_ptr(),
                              tuv.data_ptr(), g2l.data_ptr(), l2g.data_ptr(),
-                             scratch.data_ptr(), it.data_ptr(), b, w, h,
-                             stream), "sharp_yuv")
+                             it.data_ptr(), b, w, h, stream), "sharp_yuv")
 
-        reps = []
-        for _ in range(6):               # one warm-up, then five
-            restore()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            launch()
-            stop.record()
-            stop.synchronize()
-            reps.append(start.elapsed_time(stop))
-        times[name] = statistics.median(reps[1:])
+        times[name] = launch_ms(restore, launch)
         dev_us[name] = kernel_us(lambda: (restore(), launch()), "sharp_yuv",
                                  calls=3)
         sweeps = sum(iters[name])
@@ -1955,17 +1979,28 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
         nbytes[name] = 21 * h * w * sweeps
         ops[name] = 45 * h * w * sweeps
         chain[name] = (h // 2) * max(iters[name])
-        # the gamma tables and the two-row ring of updated chroma
-        smem[name] = 4 * (1024 + 34 + 2 * (w // 2) * 3)
+    build = {e: ptxas_info(logs.get("sharp_yuv", ""), e)
+             for e in ("ILi1E", "ILi4E")}
     emit("sharp_kernel", gpu=card, max_abs_err=errs, sweeps=iters,
          ms=times, device_us=dev_us, plain_ms=plain_ms,
-         dependent_row_pair_steps=chain, dynamic_smem_bytes=smem,
+         dependent_row_pair_steps=chain,
+         us_per_step={k: dev_us[k] / chain[k] for k in times},
+         plan=plans, ring="shared memory: each CTA's slice, 2 slots of "
+         "cols + 2 cells of 16 bytes; a slice's edge columns reach the "
+         "neighbours' halo cells by st.async",
          bound_ms={k: max(nbytes[k] / H100_BYTES_PER_S,
                           ops[k] / H100_OPS_PER_S) * 1e3 for k in times},
-         build=ptxas_info(build_log))
+         build={"cols_per_thread_1": build["ILi1E"],
+                "cols_per_thread_4": build["ILi4E"]})
     need(max(errs.values()) == 0,
          "sharp_yuv exact against its plain version")
+    need(plans["wide_19000x8"]["cols_per_thread"] > 1,
+         "a slice wider than its CTA runs")
     del setups
+
+    risk_row = risk_kernel_phase(card, batch, photo, rgb,
+                                 launches["m4_default"]["risk_stats"],
+                                 logs.get("risk_stats", ""))
 
     # ---- single_auto: encode_rgb on the 12-MP photo ---------------------
     runs = {"default": EncoderParam(),
@@ -1988,18 +2023,77 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, build_log: str) -> dict:
     need(s_launches["sharp"]["sharp_yuv"] == 1
          and s_launches["sharp"]["fdct"] > 0,
          "encode_rgb SHARP ran sharp_yuv and fdct")
+    need(s_launches["default"]["risk_stats"] == 1,
+         "encode_rgb AUTO ran risk_stats once")
 
     name = "batch_16x1024"
-    return kernel_row("sharp_yuv", "sjpeg_tpu_torch/csrc/sharp_yuv.cu",
-                      "sjpeg_tpu/sharp_yuv_device.py:135-204",
-                      launches["m4_default"]["sharp_yuv"], max(errs.values()),
-                      times[name], plain_ms[name], nbytes[name], ops[name],
-                      device_us=dev_us[name], sweeps=iters[name],
-                      dependent_row_pair_steps=chain[name],
+    sharp_row = kernel_row(
+        "sharp_yuv", "sjpeg_tpu_torch/csrc/sharp_yuv.cu",
+        "sjpeg_tpu/sharp_yuv_device.py:135-204",
+        launches["m4_default"]["sharp_yuv"], max(errs.values()),
+        times[name], plain_ms[name], nbytes[name], ops[name],
+        device_us=dev_us[name], sweeps=iters[name],
+        dependent_row_pair_steps=chain[name], plan=plans[name],
+        photo_12mp_ms=times["photo_12mp"],
+        photo_12mp_device_us=dev_us["photo_12mp"],
+        photo_12mp_plain_ms=plain_ms["photo_12mp"],
+        photo_12mp_plan=plans["photo_12mp"],
+        auto_sharp_4x1024_ms=times["auto_sharp_4x1024"],
+        auto_sharp_4x1024_device_us=dev_us["auto_sharp_4x1024"],
+        **build["ILi1E"])
+    return [sharp_row, risk_row]
+
+
+def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
+                      rgb: np.ndarray, launches: int, build_log: str) -> dict:
+    """risk_kernel: the riskiness kernel vs its plain version on the AUTO
+    batch, the main batch, the 12-MP photo, one row and one column, with
+    its times; returns the risk_stats kernel row."""
+    from sjpeg_tpu_torch.ops import riskiness as risk_dev
+
+    dev = torch.device(DEVICE)
+    cases = {"auto_batch_16x1024": auto_batch, "batch_16x1024": rgb,
+             "photo_12mp": photo, "row_1x4032": photo[:, :1],
+             "column_3024x1": np.ascontiguousarray(photo[:, :, :1]),
+             "tiny_2x2": photo[:, :2, :2].copy()}
+    errs, times, plain, dev_us, op_us, nbytes, ops = ({}, {}, {}, {}, {},
+                                                      {}, {})
+    for name, imgs in cases.items():
+        src = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+        got = risk_dev.risk_stats(src)
+        want = risk_dev.risk_stats_plain(src)
+        torch.cuda.synchronize()
+        errs[name] = max_err(zip(got, want))
+        if name in ("auto_batch_16x1024", "photo_12mp"):
+            times[name] = event_ms(lambda: risk_dev.risk_stats(src), 20)
+            plain[name] = event_ms(lambda: risk_dev.risk_stats_plain(src), 3)
+            trace = device_kernels(lambda: risk_dev.risk_stats(src), 5)
+            dev_us[name] = kernel_us(None, "risk_stats", trace=trace)
+            op_us[name] = sum(v["us"] for v in trace.values())
+            b, h, w = src.shape[:3]
+            # the input read once and the [b, 3] int64 sums written once;
+            # ~100 integer operations an interior position (the levels of
+            # one pixel, three pair scores with their exact rounding, the
+            # sums)
+            nbytes[name] = src.numel() + b * 3 * 8
+            ops[name] = 100 * b * (h - 1) * (w - 1)
+        del src, got, want
+    emit("risk_kernel", gpu=card, max_abs_err=errs, ms=times,
+         device_us=dev_us, op_device_us=op_us, plain_ms=plain,
+         bound_ms={k: max(nbytes[k] / H100_BYTES_PER_S,
+                          ops[k] / H100_OPS_PER_S) * 1e3 for k in times},
+         build=ptxas_info(build_log))
+    need(max(errs.values()) == 0, "risk_stats exact against its plain "
+         "version")
+    name = "auto_batch_16x1024"
+    return kernel_row("risk_stats", "sjpeg_tpu_torch/csrc/risk_stats.cu",
+                      "sjpeg_tpu/ops/riskiness.py:86-105", launches,
+                      max(errs.values()), times[name], plain[name],
+                      nbytes[name], ops[name], device_us=dev_us[name],
+                      op_device_us=op_us[name],
                       photo_12mp_ms=times["photo_12mp"],
                       photo_12mp_device_us=dev_us["photo_12mp"],
-                      photo_12mp_plain_ms=plain_ms["photo_12mp"],
-                      dynamic_smem_bytes=smem[name],
+                      photo_12mp_plain_ms=plain["photo_12mp"],
                       **ptxas_info(build_log))
 
 

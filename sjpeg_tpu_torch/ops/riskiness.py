@@ -11,14 +11,22 @@ integer, so each score is the exact rational n / 2e6 rounded half to even:
 the host table's value for every pair.  The largest n is
 4,164 x 264 x 103 ~ 1.13e8, so int32 holds every intermediate.  The sums run
 in int64, as the host scorer's do (the JAX twin sums in int32 and wraps
-above 2^31).  This is element-wise integer work and three reductions, plain
-tensor code on either device.
+above 2^31).
+
+`risk_stats` launches the one-pass CUDA kernel csrc/risk_stats.cu (over
+csrc/risk_core.cuh, which holds the same levels and pair score) for CUDA
+tensors, and runs `risk_stats_plain`, element-wise tensor code and three
+reductions, for CPU tensors.
 """
+
+import ctypes
+import math
 
 import numpy as np
 import torch
 
 from .. import constants as C
+from .. import kernels
 from ..riskiness import (KRGB, NOISE_LEVEL, THRESH_GRAY, THRESH_SHARP,
                          THRESH_YUV420, _MASK_DY, _VIS_Y, _W_DU, _W_DV)
 
@@ -59,10 +67,18 @@ def _pair_score(l0, l1) -> torch.Tensor:
     mask = torch.tensor(_MASK100, dtype=torch.int32, device=y0.device)
     n = ((_W_DU100 * (u0 - u1).abs() + _W_DV100 * (v0 - v1).abs())
          * (vis[y0] + vis[y1]) * mask[(y0 - y1).abs()])
+    return _round_score(n)
+
+
+def _round_score(n: torch.Tensor) -> torch.Tensor:
+    """n / 2e6 rounded half to even, clamped to 0..255 (int32 n >= 0)."""
     t = n // _DEN
     r2 = 2 * (n - t * _DEN)
     up = (r2 > _DEN) | ((r2 == _DEN) & (t % 2 == 1))
     return torch.clamp(t + up.to(torch.int32), 0, 255)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def risk_stats(rgb: torch.Tensor):
@@ -71,7 +87,39 @@ def risk_stats(rgb: torch.Tensor):
 
     Per interior position the three neighbour pairs (right, down,
     diagonal) are scored; sums and counts ignore scores <= the noise
-    level."""
+    level.  Launches the CUDA kernel for a CUDA tensor (which must be
+    contiguous), and runs risk_stats_plain for a CPU one; raises on any
+    other type, shape or device."""
+    if rgb.dtype != torch.uint8:
+        raise TypeError(f"risk_stats takes uint8 RGB, got {rgb.dtype}")
+    if rgb.dim() < 3 or rgb.shape[-1] != 3:
+        raise ValueError("risk_stats takes [..., H, W, 3] RGB, got shape "
+                         f"{tuple(rgb.shape)}")
+    if rgb.device.type == "cpu":
+        return risk_stats_plain(rgb)
+    if rgb.device.type != "cuda":
+        raise ValueError(f"risk_stats: no kernel for {rgb.device}")
+    if not rgb.is_contiguous():
+        raise ValueError("risk_stats takes a contiguous CUDA tensor")
+    lead = rgb.shape[:-3]
+    h, w = rgb.shape[-3:-1]
+    b = math.prod(lead)
+    out = torch.zeros((b, 3), dtype=torch.int64, device=rgb.device)
+    if b and h > 1 and w > 1:
+        fn = kernels.function("risk_stats", "sjpeg_risk_stats", _ARGTYPES)
+        with torch.cuda.device(rgb.device):
+            rc = fn(rgb.data_ptr(), out.data_ptr(), b, h, w,
+                    torch.cuda.current_stream().cuda_stream)
+        kernels.check(rc, "risk_stats")
+        risk_stats.launches += 1
+    return tuple(out[:, i].reshape(lead) for i in range(3))
+
+
+risk_stats.launches = 0
+
+
+def risk_stats_plain(rgb: torch.Tensor):
+    """risk_stats in plain tensor code, on any device."""
     levels = _risk_levels(rgb)
     l0 = tuple(x[..., :-1, :-1] for x in levels)
     l1 = tuple(x[..., :-1, 1:] for x in levels)

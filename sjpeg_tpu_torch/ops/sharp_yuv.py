@@ -13,7 +13,22 @@ import torch
 from .. import kernels
 from ..sharp_yuv import gamma_tensors, sharp_iterate_plain
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+PLAN_KEYS = ("cluster", "threads", "cols", "cols_per_thread", "smem_bytes")
+
+
+def plan(b: int, h: int, w: int) -> dict:
+    """The kernel's launch plan for b images of h x w on the current CUDA
+    device: cluster size (CTAs an image), threads a CTA, chroma columns a
+    CTA, columns a thread, and the dynamic shared memory a CTA (gamma
+    tables and ring slice).  Raises if the card refuses every cluster
+    size the slices need."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    fn = kernels.function("sharp_yuv", "sjpeg_sharp_yuv_plan",
+                          _PLAN_ARGTYPES)
+    kernels.check(fn(b, w, h, ctypes.addressof(out)), "sharp_yuv plan")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def sharp_iterate(y, uv, ty, tuv) -> torch.Tensor:
@@ -34,14 +49,11 @@ def sharp_iterate(y, uv, ty, tuv) -> torch.Tensor:
             or tuv.shape != uv.shape or h % 2 or w % 2 or min(h, w) < 6):
         raise ValueError("sharp_iterate: shape mismatch")
     g2l, l2g = gamma_tensors(y.device)
-    scratch = torch.empty((b, 2, w // 2, 3), dtype=torch.int32,
-                          device=y.device)
     iters = torch.empty((b,), dtype=torch.int32, device=y.device)
-    fn = kernels.function("sharp_yuv", "sjpeg_sharp_yuv", _ARGTYPES)
+    fn = kernels.function("sharp_yuv", "sjpeg_sharp_yuv_cluster", _ARGTYPES)
     with torch.cuda.device(y.device):
         rc = fn(y.data_ptr(), uv.data_ptr(), ty.data_ptr(), tuv.data_ptr(),
-                g2l.data_ptr(), l2g.data_ptr(), scratch.data_ptr(),
-                iters.data_ptr(), b, w, h,
+                g2l.data_ptr(), l2g.data_ptr(), iters.data_ptr(), b, w, h,
                 torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "sharp_yuv")
     sharp_iterate.launches += 1

@@ -8,6 +8,7 @@ that batch is 408 x 408; everything else uses the tiny geometries of the
 other port tests."""
 
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
@@ -157,31 +158,79 @@ def test_sharp_batch_keeps_each_images_sweeps():
 _HOST_SHIM = """
 #define __host__
 #define __device__
+#include <algorithm>
 #include <vector>
 #include "sharp_core.cuh"
 namespace {
-// sharp_core.cuh's Cta policy: the columns one after another, forwards or
-// backwards; a row pair's results must not depend on the order.
-struct HostCta {
+// sharp_core.cuh's Cta policy for all n CTAs of one image at once.  Each
+// columns() call runs every CTA's columns, the CTAs in an order that a
+// seeded generator scrambles call by call, each CTA's columns forwards or
+// backwards.  The barriers are no-ops: each stage of a row pair runs for
+// every column before the next stage starts, so a pair's loads run before
+// the previous pair's upper stage in every CTA, the earliest the card may
+// run them.  Each CTA has its own ring slice, [2][cols + 2][3] with a halo
+// cell at either end; put() writes a CTA's first and last columns into
+// its neighbours' halo cells, as the card's remote stores do.
+struct HostCluster {
+  int n, uv_w, cols;
   bool reverse;
-  template <class F> void columns(int n, F&& f) {
-    for (int i = 0; i < n; ++i) f(reverse ? n - 1 - i : i);
+  unsigned seed;
+  std::vector<std::vector<int32_t>> slices;
+  std::vector<sjpeg::SharpColumn> state;
+  std::vector<int> order;
+  int cta = 0;                              // the CTA whose columns run
+
+  HostCluster(int n_, int uv_w_, bool rev, unsigned s)
+      : n(n_), uv_w(uv_w_), cols((uv_w_ + n_ - 1) / n_), reverse(rev),
+        seed(s), slices(n_, std::vector<int32_t>(6 * (cols + 2))),
+        state(uv_w_), order(n_) {
+    for (int i = 0; i < n; ++i) order[i] = i;
   }
+  int j0(int r) const { return r * cols; }
+  int j1(int r) const { return std::min(uv_w, (r + 1) * cols); }
+  int32_t* cell(int r, int slot, int idx) {
+    return slices[r].data() + (slot * (cols + 2) + idx) * 3;
+  }
+  template <class F> void columns(F&& f) {
+    for (int i = n - 1; i > 0; --i) {       // Fisher-Yates over an LCG
+      seed = seed * 1664525u + 1013904223u;
+      std::swap(order[i], order[(seed >> 8) % (i + 1)]);
+    }
+    for (int r : order) {
+      cta = r;
+      for (int i = 0; i < j1(r) - j0(r); ++i) {
+        const int j = reverse ? j1(r) - 1 - i : j0(r) + i;
+        f(j, state[j]);
+      }
+    }
+  }
+  void arrive() {}
+  void wait() {}
   void sync() {}
+  void put(int slot, int j, const int32_t v[3]) {
+    std::copy(v, v + 3, cell(cta, slot, j - j0(cta) + 1));
+    if (j == j0(cta) && cta > 0) std::copy(v, v + 3, cell(cta - 1, slot,
+                                                          cols + 1));
+    if (j == j1(cta) - 1 && j + 1 < uv_w)
+      std::copy(v, v + 3, cell(cta + 1, slot, 0));
+  }
+  const int32_t* halo(int slot, int j) {
+    return cell(cta, slot, j - j0(cta) + 1);
+  }
   int64_t sum(int64_t v) { return v; }
 };
 }  // namespace
 extern "C" void sharp_images(int32_t* y, int32_t* uv, const int32_t* ty,
                              const int32_t* tuv, const int32_t* g2l,
                              const int32_t* l2g, int32_t* iters, int b,
-                             int w, int h, int reverse) {
-  std::vector<int32_t> ring(3 * w);
+                             int w, int h, int n_ctas, int reverse,
+                             unsigned seed) {
   const int64_t plane = (int64_t)w * h;
   for (int i = 0; i < b; ++i) {
     const sjpeg::SharpImage im{y + i * plane, uv + i * plane / 4 * 3,
-                               ty + i * plane, tuv + i * plane / 4 * 3,
-                               ring.data(), w, h};
-    HostCta cta{reverse != 0};
+                               ty + i * plane, tuv + i * plane / 4 * 3, w,
+                               h};
+    HostCluster cta(n_ctas, w / 2, reverse != 0, seed + i);
     iters[i] = sjpeg::sharp_image(cta, sjpeg::SharpTables{g2l, l2g}, im);
   }
 }
@@ -201,30 +250,49 @@ def sharp_core(tmp_path_factory):
                     f"-I{REPO / 'sjpeg_tpu_torch' / 'csrc'}", "-o", str(lib),
                     str(d / "core.cpp")], check=True)
     so = ctypes.CDLL(str(lib))
-    so.sharp_images.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    so.sharp_images.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                + [ctypes.c_uint])
     so.sharp_images.restype = None
     return so
 
 
-@pytest.mark.parametrize("reverse", [0, 1])
-@pytest.mark.parametrize("w, h", [(33, 17), (40, 24), (6, 6)])
-def test_sharp_core_host_build_matches_plain(sharp_core, w, h, reverse):
-    """The kernel's sweep loop, columns in either order: planes and sweep
-    counts equal the plain version's."""
+# (CTAs, columns backwards): the ids 0 and 1 are one CTA, columns forwards
+# and backwards; three CTAs run in a scrambled order, each reading its
+# halos from the cells that its neighbours wrote into its ring slice
+SCHEDULES = [pytest.param((1, 0), id="0"), pytest.param((1, 1), id="1"),
+             pytest.param((3, 0), id="3ctas-scrambled"),
+             pytest.param((3, 1), id="3ctas-scrambled-backwards")]
+
+
+@functools.lru_cache(maxsize=None)
+def _sharp_case(w: int, h: int):
+    """The set-up planes of four w x h images and the plain version's
+    planes and sweep counts, once a size for every schedule."""
     rgb = np.concatenate([_sweep_batch(h, w), _rgb(h, w, 85)[None]])
     y, uv, ty, tuv = sharp_yuv.sharp_setup(torch.from_numpy(rgb))
     want_y, want_uv = y.clone(), uv.clone()
     want_it = sharp_yuv.sharp_iterate_plain(want_y, want_uv, ty, tuv)
+    return ((y.numpy(), uv.numpy(), ty.numpy(), tuv.numpy()),
+            (want_y.numpy(), want_uv.numpy(), want_it.numpy()))
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("w, h", [(33, 17), (40, 24), (6, 6)])
+def test_sharp_core_host_build_matches_plain(sharp_core, w, h, schedule):
+    """The kernel's sweep loop over one or three CTAs, in sharp_core.cuh's
+    schedule with every pair's loads before the previous pair's upper
+    stage: planes and sweep counts equal the plain version's."""
+    n_ctas, backwards = schedule
+    (y, uv, ty, tuv), (want_y, want_uv, want_it) = _sharp_case(w, h)
     g2l, l2g = sharp_yuv.gamma_tensors(torch.device("cpu"))
-    y, uv, it = y.numpy(), uv.numpy(), np.zeros(len(rgb), np.int32)
+    y, uv, it = y.copy(), uv.copy(), np.zeros(len(y), np.int32)
     sharp_core.sharp_images(
-        y.ctypes.data, uv.ctypes.data, ty.numpy().ctypes.data,
-        tuv.numpy().ctypes.data, g2l.numpy().ctypes.data,
-        l2g.numpy().ctypes.data, it.ctypes.data, len(rgb), y.shape[2],
-        y.shape[1], reverse)
-    np.testing.assert_array_equal(it, want_it.numpy())
-    np.testing.assert_array_equal(y, want_y.numpy())
-    np.testing.assert_array_equal(uv, want_uv.numpy())
+        y.ctypes.data, uv.ctypes.data, ty.ctypes.data, tuv.ctypes.data,
+        g2l.numpy().ctypes.data, l2g.numpy().ctypes.data, it.ctypes.data,
+        len(y), y.shape[2], y.shape[1], n_ctas, backwards, 7 * w + h)
+    np.testing.assert_array_equal(it, want_it)
+    np.testing.assert_array_equal(y, want_y)
+    np.testing.assert_array_equal(uv, want_uv)
 
 
 @pytest.mark.parametrize("method", [4, 0])

@@ -535,11 +535,14 @@ def test_encode_pipelined_two_streams_on_gpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b, h, w", [(3, 17, 33), (2, 6, 6), (2, 96, 2050),
-                                     (1, 8, 19_000)])
+                                     (1, 8, 19_000), (140, 6, 128),
+                                     (140, 6, 2100), (1, 6, 1024)])
 def test_sharp_yuv_matches_plain_on_gpu(b, h, w):
     """The sweep kernel == its plain version, planes and sweep counts: odd
-    sizes, the smallest, a row wider than the CTA (threads stride), and a
-    row too wide for the shared ring (the caller's scratch)."""
+    sizes, the smallest, a cluster of 16 an image, slices wider than their
+    CTAs (19,000 wide; 2,100 wide on one CTA an image), more images than
+    SMs, so one CTA an image, and 16 CTAs over three row pairs, where a CTA
+    may finish a sweep before a far one has read the last sum."""
     _need_cuda()
     rgb = np.random.RandomState(33).randint(0, 256, (b, h, w, 3)).astype(
         np.uint8)
@@ -550,6 +553,49 @@ def test_sharp_yuv_matches_plain_on_gpu(b, h, w):
     pit = sharp_yuv.sharp_iterate_plain(py, puv, ty, tuv)
     assert torch.equal(it, pit) and torch.equal(y, py) and torch.equal(uv,
                                                                        puv)
+
+
+@pytest.mark.cuda
+def test_sharp_yuv_plan_on_gpu():
+    """The cluster plan: 16 CTAs for one photo, 8 a 1024^2 image in a batch
+    of 16, one CTA an image past the SM count, a slice wider than its CTA
+    run three columns a thread, and the ring slice in shared memory."""
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    photo = sharp_ops.plan(1, 3024, 4032)
+    assert (photo["cluster"], photo["threads"], photo["cols"]) == (16, 128,
+                                                                  126)
+    assert sharp_ops.plan(16, 1024, 1024)["cluster"] == (8 if sms >= 128
+                                                         else 4)
+    assert sharp_ops.plan(sms + 8, 6, 128)["cluster"] == 1
+    wide = sharp_ops.plan(sms + 8, 6, 2100)
+    assert (wide["cluster"], wide["cols_per_thread"]) == (1, 3)
+    # the tables (1,058 words, rounded up to 16 bytes) and two ring slots
+    # of the slice's cells and two halo cells, 4 words a cell
+    assert wide["smem_bytes"] == 4 * (1060 + 2 * (1050 + 2) * 4)
+    assert sharp_ops.plan(2, 6, 6)["cluster"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, h, w", [(2, 1, 7), (1, 9, 1), (2, 2, 2),
+                                     (3, 13, 9), (2, 300, 517),
+                                     (1, 40, 4000)])
+def test_risk_stats_matches_plain_on_gpu(b, h, w):
+    """The riskiness kernel == its plain version on the card, one launch
+    (none for an image without interior positions), odd sizes and a row
+    wider than a CTA's columns."""
+    _need_cuda()
+    rng = np.random.RandomState(35)
+    rgb = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+    rgb[0, :, ::3] = [255, 0, 0]
+    src = torch.from_numpy(rgb).cuda()
+    before = risk_dev.risk_stats.launches
+    got = risk_dev.risk_stats(src)
+    assert risk_dev.risk_stats.launches == before + (h > 1 and w > 1)
+    for g, p in zip(got, risk_dev.risk_stats_plain(src)):
+        assert g.shape == (b,) and torch.equal(g, p)
+    with pytest.raises(ValueError):           # not contiguous
+        risk_dev.risk_stats(torch.cat([src, src], -1)[..., 3:])
 
 
 @pytest.mark.cuda
