@@ -65,7 +65,22 @@ against the plain PyTorch versions on the same card:
   2 x 2 image; its times), single_auto (encode_rgb on the 12-MP photo with
   the default EncoderParam and with SHARP pinned), and cli (python -m
   sjpeg_tpu_torch.cli on a 256^2 PPM, with and without -sharp, vs
-  --device cpu).
+  --device cpu);
+- the sharded API (sjpeg_tpu_torch.parallel.encode_batch_sharded) on
+  meshes of the card (cuda:0 repeated; distinct devices too when there
+  are several), through fdct, trellis, merge_codesizes, vlc_pack,
+  stream_concat (a stripe's stream, and the stitch), sharp_yuv and
+  risk_stats.  Phase sharded (before cli): the main batch with methods
+  0, 4 and 7 on (1, 4) and (2, 2), 8 x 1920 x 1080 on (2, 4) (a partial
+  MCU row inside a stripe), 3 images on dp = 2, shared statistics, the
+  AUTO batch and SHARP on (2, 2), and two processes (gloo, a file://
+  store) each with a (1, 2) grid of the card, every case's bytes vs
+  engine.encode_batch on the card; the stitch's stream_concat launch vs
+  its plain version on the same 64-word pieces (stripe streams of
+  0-2,049 bits and the main batch's stripes); the wrappers' launch
+  counts of each call and torch.profiler's of one; median-of-3 ms
+  beside encode_batch's; a host-clock stage breakdown.  The kernels
+  line's rows gain `sharded_launches`.
 
 One JSON line each.  Then the `kernels` line (each kernel's device
 microseconds a launch from a torch.profiler trace beside its CUDA-event
@@ -275,15 +290,27 @@ def global_names(source: str) -> list:
         (kernels.CSRC / f"{source}.cu").read_text())
 
 
-def kernel_us(fn, source: str, calls: int = 5, trace=None) -> float:
+def kernel_us(fn, source: str, calls: int = 5, trace=None, tries: int = 3):
     """Device microseconds of one launch of each kernel of csrc/<source>.cu
     that fn runs, summed over those kernels: the mean over the launches
-    that torch.profiler recorded in `calls` calls (or in a device_kernels
-    trace), which may be fewer than the calls made."""
+    that torch.profiler recorded in `calls` calls (or first in a given
+    device_kernels trace), which may be fewer than the calls made.  A trace
+    that recorded no launch of the source is taken again, up to `tries`
+    traces of fn; after that the result is None, never 0."""
     names = global_names(source)
-    trace = trace if trace is not None else device_kernels(fn, calls)
-    return sum(v["us"] / v["launches"] for k, v in trace.items()
-               if v["launches"] and any(nm in k for nm in names))
+    for _ in range(tries):
+        if trace is None:
+            if fn is None:
+                break
+            trace = device_kernels(fn, calls)
+        hits = [v["us"] / v["launches"] for k, v in trace.items()
+                if v["launches"] and any(nm in k for nm in names)]
+        if hits:
+            return sum(hits)
+        trace = None
+    print(f"kernel_us: no {source} launch recorded in {tries} traces",
+          flush=True)
+    return None
 
 
 def host_ms(fn, reps: int) -> float:
@@ -539,7 +566,7 @@ def main() -> int:
                    launches["stream_concat"], err2, sc_op_ms, sc_plain_ms,
                    sc_bytes, sc_ops, kernel_ms=sc_ms,
                    kernel_launches_per_op=sc_kernel_launches,
-                   device_us=kernel_us(None, "stream_concat",
+                   device_us=kernel_us(stream_concat_op, "stream_concat",
                                        trace=sc_trace),
                    redesigned=True)]
     del words, bits, pwords, pbits, out, pout, sinter, blocks, src
@@ -562,6 +589,11 @@ def main() -> int:
     serving_phases(card, rgb)
     torch.cuda.empty_cache()
     rows += auto_sharp_phases(card, rgb, logs)
+    torch.cuda.empty_cache()
+    sharded = sharded_phases(card, rgb)
+    for row in rows:
+        if row["name"] in sharded:
+            row["sharded_launches"] = sharded[row["name"]]
     torch.cuda.empty_cache()
     cli_phase()
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1899,8 +1931,9 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, logs: dict) -> list:
         sizes[name] = sum(len(j) for j in jpegs)
     emit("auto_batch", gpu=card, images=BATCH, modes=modes,
          host_scorer_modes=host_modes, risk_stats_exact_vs_cpu=risk_exact,
-         risk_stats_device_us=kernel_us(None, "risk_stats",
-                                        trace=risk_trace),
+         risk_stats_device_us=kernel_us(
+             lambda: risk_dev.risk_stats(src), "risk_stats", calls=20,
+             trace=risk_trace),
          risk_stats_op_device_us=sum(v["us"] for v in risk_trace.values()),
          risk_stats_event_us=risk_event_ms * 1e3,
          launches=launches, byte_equal_plain=same, bytes_total=sizes,
@@ -1984,7 +2017,8 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, logs: dict) -> list:
     emit("sharp_kernel", gpu=card, max_abs_err=errs, sweeps=iters,
          ms=times, device_us=dev_us, plain_ms=plain_ms,
          dependent_row_pair_steps=chain,
-         us_per_step={k: dev_us[k] / chain[k] for k in times},
+         us_per_step={k: dev_us[k] and dev_us[k] / chain[k]
+                      for k in times},
          plan=plans, ring="shared memory: each CTA's slice, 2 slots of "
          "cols + 2 cells of 16 bytes; a slice's edge columns reach the "
          "neighbours' halo cells by st.async",
@@ -2068,7 +2102,8 @@ def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
             times[name] = event_ms(lambda: risk_dev.risk_stats(src), 20)
             plain[name] = event_ms(lambda: risk_dev.risk_stats_plain(src), 3)
             trace = device_kernels(lambda: risk_dev.risk_stats(src), 5)
-            dev_us[name] = kernel_us(None, "risk_stats", trace=trace)
+            dev_us[name] = kernel_us(lambda: risk_dev.risk_stats(src),
+                                     "risk_stats", trace=trace)
             op_us[name] = sum(v["us"] for v in trace.values())
             b, h, w = src.shape[:3]
             # the input read once and the [b, 3] int64 sums written once;
@@ -2095,6 +2130,224 @@ def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
                       photo_12mp_device_us=dev_us["photo_12mp"],
                       photo_12mp_plain_ms=plain["photo_12mp"],
                       **ptxas_info(build_log))
+
+
+PORT_SOURCES = ("fdct", "trellis", "merge_codesizes", "vlc_pack",
+                "stream_concat", "sharp_yuv", "risk_stats", "sample_pack",
+                "quant_pack")
+
+
+def port_launches(trace: dict) -> dict:
+    """{csrc source: kernel launches} of a device_kernels trace, for the
+    port's own kernels."""
+    out = {}
+    for source in PORT_SOURCES:
+        names = global_names(source)
+        n = sum(v["launches"] for k, v in trace.items()
+                if any(nm in k for nm in names))
+        if n:
+            out[source] = n
+    return out
+
+
+def sharded_worker(rank: int, world: int, init_method: str, out_dir: str,
+                   device: str, height: int, width: int) -> None:
+    """One of the two processes of the sharded phase: a (1, 2) grid of the
+    card under a (2, 2) mesh, method 4, two of the four images."""
+    import pickle
+    from pathlib import Path
+
+    import torch.distributed as dist
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch.parallel.api import encode_batch_sharded
+    from sjpeg_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(init_method, world, rank)
+    try:
+        mesh = make_mesh(devices=[torch.device(device, 0)] * 2)
+        imgs = make_rgb(2 * world, height, width, SEED + 1100)
+        jpegs = encode_batch_sharded(imgs[2 * rank:2 * rank + 2],
+                                     method4(C.YUV_420), mesh)
+        info = {"dp": mesh.dp, "sp": mesh.sp, "rank": mesh.rank,
+                "world": mesh.world}
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"{rank}.pkl").write_bytes(pickle.dumps((info, jpegs)))
+
+
+def sharded_phases(card: str, rgb: np.ndarray) -> dict:
+    """The sharded API (sjpeg_tpu_torch.parallel) on meshes of the card
+    (cuda:0 repeated: the stripes run one after another) and, with two or
+    more cards, of distinct devices: every case's bytes against
+    engine.encode_batch on the card; the stitch's stream_concat launch
+    against its plain version; times, a stage breakdown and the kernels'
+    launches of one sharded call; two processes under gloo.  Returns
+    {kernel: launches} of the method-7 call on (2, 2) (fdct, trellis,
+    merge_codesizes, vlc_pack, stream_concat), and of the AUTO batch's
+    call for the kernels that call alone runs (sharp_yuv, risk_stats)."""
+    import pickle
+    import torch.multiprocessing as mp
+
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, kernels
+    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, stream_concat,
+                                     trellis, vlc_pack)
+    from sjpeg_tpu_torch.ops import riskiness as risk_dev
+    from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
+    from sjpeg_tpu_torch.params import EncoderParam
+    from sjpeg_tpu_torch.parallel import api
+    from sjpeg_tpu_torch.parallel.mesh import make_mesh
+    from sjpeg_tpu_torch.parallel.shard import stitch_shard_streams
+
+    dev = torch.device(DEVICE, 0)
+    n_dev = torch.cuda.device_count()
+
+    def mesh(dp, sp, distinct=False):
+        devs = [torch.device(DEVICE, i % n_dev if distinct else 0)
+                for i in range(dp * sp)]
+        return make_mesh(dp, sp, devs)
+
+    counted = {"fdct": fdct.fdct_blocks, "trellis": trellis.trellis_quantize,
+               "merge_codesizes": merge_codesizes.optimal_tables,
+               "vlc_pack": vlc_pack.vlc_pack,
+               "stream_concat": stream_concat.stream_concat,
+               "sharp_yuv": sharp_ops.sharp_iterate,
+               "risk_stats": risk_dev.risk_stats}
+
+    def counted_run(fn):
+        for f in counted.values():
+            f.launches = 0
+        out = fn()
+        return out, {k: f.launches for k, f in counted.items()}
+
+    # ---- the main batch: methods 0, 4, 7 on (1, 4) and (2, 2) -----------
+    same, launches, ms = {}, {}, {}
+    meshes = {"1x4": (1, 4), "2x2": (2, 2)}
+    for m in (0, 4, 7):
+        p = method_param(m, C.YUV_420)
+        want = engine.encode_batch(rgb, p, device=dev)
+        for name, (dp, sp) in meshes.items():
+            got, launches[f"m{m}_{name}"] = counted_run(
+                lambda: api.encode_batch_sharded(rgb, p, mesh(dp, sp)))
+            same[f"m{m}_{name}"] = got == want
+        if n_dev > 1:
+            same[f"m{m}_2x2_distinct"] = api.encode_batch_sharded(
+                rgb, p, mesh(2, 2, True)) == want
+        ms[f"m{m}"] = {"encode_batch": host_ms(
+            lambda: engine.encode_batch(rgb, p, device=dev), 3)}
+        for name, (dp, sp) in meshes.items():
+            ms[f"m{m}"][f"sharded_{name}"] = host_ms(
+                lambda: api.encode_batch_sharded(rgb, p, mesh(dp, sp)), 3)
+    path = launches["m7_2x2"]
+    need(all(path[k] > 0 for k in ("fdct", "trellis", "merge_codesizes",
+                                   "vlc_pack", "stream_concat")),
+         "the method-7 sharded path ran fdct, trellis, merge_codesizes, "
+         "vlc_pack and stream_concat")
+    need(launches["m0_2x2"]["merge_codesizes"] == 0
+         and launches["m4_2x2"]["merge_codesizes"] == 2
+         and launches["m4_2x2"]["stream_concat"] == 2 * 2 + 2,
+         "method 4 on (2, 2): a table build and a stitch a dp row, a "
+         "stream_concat a stripe")
+
+    # ---- ragged, odd, shared, AUTO, sharp --------------------------------
+    p4 = method4(C.YUV_420)
+    tall = make_rgb(8, 1080, 1920, SEED + 1101)
+    same["ragged_1080p_2x4"] = (api.encode_batch_sharded(tall, p4,
+                                                         mesh(2, 4))
+                                == engine.encode_batch(tall, p4, device=dev))
+    del tall
+    same["odd_3_2x2"] = (api.encode_batch_sharded(rgb[:3], p4, mesh(2, 2))
+                         == engine.encode_batch(rgb[:3], p4, device=dev))
+    same["shared_m4_2x2"] = (
+        api.encode_batch_sharded(rgb, p4, mesh(2, 2), share_statistics=True)
+        == engine.encode_batch(rgb, p4, share_statistics=True, device=dev))
+    auto = four_mode_batch(WIDTH, BATCH // 4)
+    got, launches["auto_2x2"] = counted_run(
+        lambda: api.encode_batch_sharded(auto, EncoderParam(), mesh(2, 2)))
+    same["auto_2x2"] = got == engine.encode_batch(auto, EncoderParam(),
+                                                  device=dev)
+    sharp = EncoderParam(yuv_mode=C.YUV_SHARP)
+    got, launches["sharp_2x2"] = counted_run(
+        lambda: api.encode_batch_sharded(rgb, sharp, mesh(2, 2)))
+    same["sharp_2x2"] = got == engine.encode_batch(rgb, sharp, device=dev)
+    need(launches["auto_2x2"]["risk_stats"] == 1
+         and launches["auto_2x2"]["sharp_yuv"] > 0
+         and launches["sharp_2x2"]["sharp_yuv"] == 2,
+         "AUTO ran risk_stats once and sharp_yuv; SHARP a sweep launch a "
+         "dp row")
+
+    # ---- the stitch against its plain version -----------------------------
+    stitch_err = {}
+    rng = np.random.RandomState(SEED + 1102)
+    lens = np.array([0, 1, 31, 32, 2047, 2048, 2049])
+    totals = np.stack([rng.permutation(lens) for _ in range(3)])
+    pieces = np.clip(totals.reshape(-1, 1) - 2048 * np.arange(2), 0, 2048)
+    edge_w = torch.from_numpy(random_streams(rng, pieces.reshape(-1))).to(
+        dev).reshape(3, len(lens), 128)
+    edge_t = torch.from_numpy(totals.astype(np.int32)).to(dev)
+    run = api._Sharded(rgb, p4, mesh(2, 2), C.YUV_420, 4.0, False)
+    for stage in run.stages()[:5]:
+        stage()
+    cases = {"edges": (edge_w, edge_t)}
+    for r, (words, tots) in enumerate(run.streams):
+        cases[f"main_row{r}"] = (torch.stack(words, 1), torch.stack(tots, 1))
+    for name, (w, t) in cases.items():
+        b, s, bucket = w.shape
+        bits = (t.long()[..., None] - 2048 * torch.arange(
+            bucket // 64, device=dev)).clamp(0, 2048).int().reshape(-1)
+        got = stitch_shard_streams(w, t)
+        want = stream_concat.stream_concat_plain(w.reshape(-1, 64), bits, b,
+                                                 s * bucket)
+        torch.cuda.synchronize()
+        stitch_err[name] = max_err(zip(got, want))
+    need(max(stitch_err.values()) == 0,
+         "the stitch equals stream_concat_plain on the same pieces")
+    del run, cases
+
+    # ---- one sharded call: kernels (torch.profiler), stage breakdown -----
+    p7 = method7(C.YUV_420)
+    traces = {f"m{m}_2x2": port_launches(device_kernels(
+        lambda p=p: api.encode_batch_sharded(rgb, p, mesh(2, 2))))
+        for m, p in ((4, p4), (7, p7))}
+    breakdown = {}
+    for name, p in (("m4_2x2", p4), ("m7_2x2", p7)):
+        run = api._Sharded(rgb, p, mesh(2, 2), C.YUV_420, 4.0, False)
+        breakdown[name] = {}
+        for stage in run.stages():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage()
+            torch.cuda.synchronize()
+            breakdown[name][stage.__name__] = (time.perf_counter() - t0) * 1e3
+        need(run.out == engine.encode_batch(rgb, p, device=dev),
+             "the staged run's bytes")
+        del run
+
+    # ---- two processes on the card (gloo, file:// store) -----------------
+    work = kernels.BUILD_DIR / "sharded_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.start_processes(sharded_worker,
+                       args=(2, f"file://{work / 'store'}", str(work),
+                             DEVICE, HEIGHT, WIDTH),
+                       nprocs=2, join=True, start_method="spawn")
+    two_proc_s = time.perf_counter() - t0
+    outs = [pickle.loads((work / f"{r}.pkl").read_bytes()) for r in range(2)]
+    glob = make_rgb(4, HEIGHT, WIDTH, SEED + 1100)
+    same["two_processes_m4"] = ([j for _, js in outs for j in js]
+                                == engine.encode_batch(glob, p4, device=dev))
+    emit("sharded", gpu=card, devices=n_dev, byte_equal=same,
+         launches=launches, stitch_max_abs_err=stitch_err, ms=ms,
+         profiler_launches=traces, breakdown_ms=breakdown,
+         two_processes={"meshes": [info for info, _ in outs],
+                        "seconds": two_proc_s},
+         repeated_device=n_dev == 1)
+    need(all(same.values()), "every sharded case byte-equal to "
+         "engine.encode_batch on the card")
+    return {k: launches["m7_2x2"][k] or launches["auto_2x2"][k]
+            for k in counted}
+
 
 
 def cli_phase() -> None:

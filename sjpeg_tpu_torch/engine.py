@@ -59,6 +59,10 @@ runs as one sub-batch per mode.  YUV_SHARP converts on the card first:
 
 and encodes the planes as 4:2:0.
 
+The sharded API (parallel/api.encode_batch_sharded) runs these staged
+stages once an MCU-row stripe over a (dp, sp) mesh of devices, with the
+same bytes, and delegates to `encode_batch` where the JAX package does.
+
 Every entry point takes `device`: None means "cuda", and it raises when
 CUDA is missing.  With device="cpu" the kernels' plain PyTorch versions
 run instead, which is how the tests hold the port against the JAX package.
@@ -438,11 +442,12 @@ def _tuned_qms(qms, histo_pair, param: EncoderParam, n_groups: int):
 
 
 def _interleave_quantized(coeffs, iquant, ibias, nb_blocks,
-                          n_images: int = 1):
+                          n_images: int = 1, dc_codes=None):
     """Quantize per component, interleave into MCU order, and derive the
     zigzag VLC fields (int32 [N, 64] run/size/code, bool nz, [N] last),
-    the DC codes (the predictor resets per image) and each row's table
-    group.  iquant/ibias: [2, 64] shared, or [B, 2, 64] per image."""
+    the DC codes (the predictor resets per image; or the given
+    MCU-interleaved `dc_codes`) and each row's table group.
+    iquant/ibias: [2, 64] shared, or [B, 2, 64] per image."""
     qbs = []
     for c, coef in enumerate(coeffs):
         g = 0 if c == 0 else 1
@@ -456,25 +461,28 @@ def _interleave_quantized(coeffs, iquant, ibias, nb_blocks,
                         for qb, nb in zip(qbs, nb_blocks)],
                        dim=1).reshape(-1, 64)
     rl = vlc.run_levels(qinter, torch.int32)
-
-    dcv = qinter[:, 0].reshape(n_mcu, sum(nb_blocks))
-    dc_cols, col = [], 0
-    for nb in nb_blocks:
-        codes = vlc.dc_diff_codes(dcv[:, col:col + nb].reshape(-1), n_images)
-        dc_cols.append(codes.reshape(n_mcu, nb))
-        col += nb
-    dc_codes = torch.cat(dc_cols, dim=1).reshape(-1)
+    if dc_codes is None:
+        dcv = qinter[:, 0].reshape(n_mcu, sum(nb_blocks))
+        dc_cols, col = [], 0
+        for nb in nb_blocks:
+            codes = vlc.dc_diff_codes(dcv[:, col:col + nb].reshape(-1),
+                                      n_images)
+            dc_cols.append(codes.reshape(n_mcu, nb))
+            col += nb
+        dc_codes = torch.cat(dc_cols, dim=1).reshape(-1)
     return rl, dc_codes, _slot_groups(nb_blocks, n_mcu, qinter.device)
 
 
-def _grouped_stats(rl, dc_codes, group, n_images: int = 1):
+def _grouped_stats(rl, dc_codes, group, n_images: int = 1, valid=None):
     """Per-table-group symbol frequencies from interleaved VLC fields:
     int32 ([B, 2, 12] DC, [B, 2, 256] AC) per image (rows image-major,
     equal blocks per image), unbatched ([2, 12], [2, 256]) when
     n_images == 1.  AC counts include a ZRL at 0xF0 for every 16 zeros
     of a run and an EOB at 0x00 for each block not ending at position 63.
-    Integer scatter-adds are exact: no one-hot matmul."""
-    nz = rl["nz"]
+    `valid`: optional [N] bool; blocks with False count no symbol, DC and
+    EOB included (the padding blocks of a ragged stripe).  Integer
+    scatter-adds are exact: no one-hot matmul."""
+    nz = rl["nz"] if valid is None else rl["nz"] & valid[:, None]
     n = nz.shape[0]
     dev = nz.device
     img = torch.arange(n_images, device=dev).repeat_interleave(n // n_images)
@@ -485,12 +493,16 @@ def _grouped_stats(rl, dc_codes, group, n_images: int = 1):
                          nz.to(torch.int32).reshape(-1))
     esc = torch.where(nz, rl["run"] >> 4, 0).sum(dim=1, dtype=torch.int32)
     freq_ac.scatter_add_(0, tab * 256 + 0xF0, esc)
-    freq_ac.scatter_add_(0, tab * 256, (rl["last"] < 63).to(torch.int32))
+    eob = rl["last"] < 63
+    if valid is not None:
+        eob = eob & valid
+    freq_ac.scatter_add_(0, tab * 256, eob.to(torch.int32))
 
     # DC: the JAX one-hot over 26 = 2 x 13 size bins drops larger indices
     dci = group * 13 + (dc_codes & 0x0F)
     dump = n_images * 26
-    idx = torch.where(dci < 26, img * 26 + dci, dump)
+    keep = dci < 26 if valid is None else (dci < 26) & valid
+    idx = torch.where(keep, img * 26 + dci, dump)
     freq_dc = torch.zeros(dump + 1, dtype=torch.int32, device=dev)
     freq_dc.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
     freq_dc = freq_dc[:dump].reshape(n_images, 2, 13)[:, :, :12]
@@ -501,14 +513,18 @@ def _grouped_stats(rl, dc_codes, group, n_images: int = 1):
 
 
 def _stage_batch_quantize(coeffs, iquant, ibias, with_stats: bool,
-                          nb_blocks, n_images: int, stats_images: int):
-    """-> ((VLC fields, DC codes, groups), frequencies or None)."""
+                          nb_blocks, n_images: int, stats_images: int,
+                          dc_codes=None, valid=None):
+    """-> ((VLC fields, DC codes, groups), frequencies or None).
+    `dc_codes`: MCU-interleaved DC codes to use instead of the per-image
+    chain; `valid`: the blocks the frequencies count (all when None)."""
     rl, dc_codes, group = _interleave_quantized(coeffs, iquant, ibias,
-                                                nb_blocks, n_images)
+                                                nb_blocks, n_images,
+                                                dc_codes)
     if not with_stats:
         return (rl, dc_codes, group), None
     return (rl, dc_codes, group), _grouped_stats(rl, dc_codes, group,
-                                                 stats_images)
+                                                 stats_images, valid)
 
 
 def _clamped_quant(per_qms, shared: bool) -> np.ndarray:
@@ -519,29 +535,30 @@ def _clamped_quant(per_qms, shared: bool) -> np.ndarray:
     return np.stack([[q["quant"] for q in qms] for qms in per_qms])
 
 
-def _interleave_coeffs(coeffs, iquant, ibias, nb_blocks, n_images: int = 1):
+def _interleave_coeffs(coeffs, iquant, ibias, nb_blocks, n_images: int = 1,
+                       dc_codes=None):
     """MCU-interleave the per-component coefficients (for quant_pack and
     the trellis, which quantize per block), with each block's DC diff code
     from the plain bias quantizer of the DC lane alone (the predictor
-    resets per image; the trellis's own DC rule, src/enc.cc:763-766) and
-    its table group.  iquant/ibias: [2, 64] shared or [B, 2, 64] per image
-    -> ([N, 64] int32, [N] int32 DC codes, [N] int32 groups)."""
+    resets per image; the trellis's own DC rule, src/enc.cc:763-766; or
+    the given MCU-interleaved `dc_codes`) and its table group.
+    iquant/ibias: [2, 64] shared or [B, 2, 64] per image -> ([N, 64]
+    int32, [N] int32 DC codes, [N] int32 groups)."""
     n_mcu = coeffs[0].shape[0] // nb_blocks[0]
     cinter = torch.cat([co.reshape(n_mcu, nb, 64)
                         for co, nb in zip(coeffs, nb_blocks)],
                        dim=1).reshape(-1, 64)
-    return (cinter, _dc_codes(coeffs, iquant, ibias, nb_blocks, n_images),
-            _slot_groups(nb_blocks, n_mcu, cinter.device))
+    if dc_codes is None:
+        dc_codes = _dc_codes(coeffs, iquant, ibias, nb_blocks, n_images)
+    return (cinter, dc_codes, _slot_groups(nb_blocks, n_mcu, cinter.device))
 
 
-def _dc_codes(coeffs, iquant, ibias, nb_blocks, n_images: int = 1):
-    """MCU-interleaved [N] int32 DC diff codes of per-component
-    coefficients under the plain bias quantizer (src/enc.cc:482-499; the
-    predictor resets per image).  iquant/ibias: [2, 64] shared or
-    [B, 2, 64] per image."""
-    n_mcu = coeffs[0].shape[0] // nb_blocks[0]
-    dc_cols = []
-    for c, (co, nb) in enumerate(zip(coeffs, nb_blocks)):
+def _dc_quantized(coeffs, iquant, ibias, n_images: int = 1) -> list:
+    """Each component's DC under the plain bias quantizer, [n_images,
+    blocks per image] int64.  iquant/ibias: [2, 64] shared or [B, 2, 64]
+    per image."""
+    out = []
+    for c, co in enumerate(coeffs):
         g = 0 if c == 0 else 1
         if iquant.dim() == 3:
             dcq = quantize.quantize_values(co[:, 0].reshape(n_images, -1),
@@ -550,36 +567,55 @@ def _dc_codes(coeffs, iquant, ibias, nb_blocks, n_images: int = 1):
         else:
             dcq = quantize.quantize_values(co[:, 0], iquant[g, 0],
                                            ibias[g, 0])
-        codes = vlc.dc_diff_codes(dcq.reshape(-1), n_images)
-        dc_cols.append(codes.reshape(n_mcu, nb))
-    return torch.cat(dc_cols, dim=1).reshape(-1)
+        out.append(dcq.reshape(n_images, -1))
+    return out
+
+
+def _dc_codes(coeffs, iquant, ibias, nb_blocks, n_images: int = 1):
+    """MCU-interleaved [N] int32 DC diff codes of per-component
+    coefficients under the plain bias quantizer (src/enc.cc:482-499; the
+    predictor resets per image).  iquant/ibias: [2, 64] shared or
+    [B, 2, 64] per image."""
+    return _interleave_dc([vlc.dc_diff_codes(dcq.reshape(-1), n_images)
+                           for dcq in _dc_quantized(coeffs, iquant, ibias,
+                                                    n_images)], nb_blocks)
+
+
+def _interleave_dc(codes, nb_blocks) -> torch.Tensor:
+    """Per-component [N_c] DC codes -> MCU-interleaved [N] int32."""
+    n_mcu = codes[0].shape[0] // nb_blocks[0]
+    return torch.cat([c.reshape(n_mcu, nb) for c, nb in zip(codes,
+                                                            nb_blocks)],
+                     dim=1).reshape(-1)
 
 
 def _stage_trellis_post(qinter, dc_codes, group, with_stats: bool,
-                        stats_images: int):
+                        stats_images: int, valid=None):
     """Trellis levels -> ((int32 VLC fields, DC codes, groups),
-    frequencies or None)."""
+    frequencies of the `valid` blocks (all when None), or None)."""
     rl = vlc.run_levels(qinter, torch.int32)
     if not with_stats:
         return (rl, dc_codes, group), None
     return (rl, dc_codes, group), _grouped_stats(rl, dc_codes, group,
-                                                 stats_images)
+                                                 stats_images, valid)
 
 
 def _stage_quantize_trellis(coeffs, iquant, ibias, quant, lt_lens,
                             with_stats: bool, nb_blocks, n_images: int,
-                            stats_images: int):
+                            stats_images: int, dc_codes=None, valid=None):
     """Trellis quantize + interleave + VLC fields (+ frequencies): the
-    method-7 counterpart of `_stage_batch_quantize` (src/enc.cc:692-761).
-    iquant/ibias/quant: [2, 64] shared or [B, 2, 64] per image; lt_lens:
-    [2, 256] or [B, 2, 256] AC code lengths, the rate model."""
+    method-7 counterpart of `_stage_batch_quantize` (src/enc.cc:692-761),
+    with the same `dc_codes` and `valid`.  iquant/ibias/quant: [2, 64]
+    shared or [B, 2, 64] per image; lt_lens: [2, 256] or [B, 2, 256] AC
+    code lengths, the rate model."""
     cinter, dc_codes, group = _interleave_coeffs(coeffs, iquant, ibias,
-                                                 nb_blocks, n_images)
+                                                 nb_blocks, n_images,
+                                                 dc_codes)
     qinter = trellis.trellis_quantize(cinter, iquant, ibias, quant, group,
                                       lt_lens, n_images)
     del cinter
     return _stage_trellis_post(qinter, dc_codes, group, with_stats,
-                               stats_images)
+                               stats_images, valid)
 
 
 def _stage_tables(freqs, flags, n_groups: int, b: int,
@@ -608,29 +644,77 @@ def _stage_tables(freqs, flags, n_groups: int, b: int,
 
 
 def _stage_batch_pack(vlc_state, dc_luts, ac_luts, n_images: int,
-                      bucket: int):
+                      bucket: int, block_valid=None):
     """VLC fields + LUTs ([2, ...] shared or [B, 2, ...] per image) ->
-    ([n_images, bucket] int32 words, [n_images] int32 exact totals)."""
+    ([n_images, bucket] int32 words, [n_images] int32 exact totals).
+    `block_valid`: optional [N] bool; blocks with False emit no bits (the
+    padding blocks of a ragged stripe; every block otherwise emits at
+    least its DC and EOB codes)."""
     rl, dc_codes, group = vlc_state
     words, bits = vlc_pack.vlc_pack(rl["run"], rl["size"], rl["code"],
                                     dc_codes, group, dc_luts, ac_luts)
+    if block_valid is not None:
+        bits = torch.where(block_valid, bits, 0)
+        words = torch.where(block_valid[:, None], words, 0)
     return stream_concat.stream_concat(words, bits, n_images, bucket)
+
+
+def _state_rows(vlc_state, rows: slice):
+    """The blocks `rows` of a VLC state (fields, DC codes, groups)."""
+    rl, dc_codes, group = vlc_state
+    return ({k: v[rows] for k, v in rl.items()}, dc_codes[rows],
+            group[rows])
 
 
 def _repack_one(vlc_state, dc_luts, ac_luts, i: int, per_img: int) -> bytes:
     """Scan bytes of image i after a bucket overflow: its rows of the
-    already chosen VLC state, packed again with its own LUTs (and its
-    batch's, when shared) into a bucket of 64 words a block, which cannot
-    overflow.  A fresh single-image encode would derive other tables when
-    they came from the whole batch."""
-    rows = slice(i * per_img, (i + 1) * per_img)
-    rl, dc_codes, group = vlc_state
-    state_i = ({k: v[rows] for k, v in rl.items()}, dc_codes[rows],
-               group[rows])
+    already chosen VLC state, packed again by `_repack_image`."""
+    return _repack_image(
+        _state_rows(vlc_state, slice(i * per_img, (i + 1) * per_img)),
+        dc_luts, ac_luts, i)
+
+
+def _repack_image(state_i, dc_luts, ac_luts, i: int) -> bytes:
+    """Scan bytes of image i from its own VLC state, packed again with its
+    own LUTs (and its batch's, when shared) into a bucket of 64 words a
+    block, which cannot overflow.  A fresh single-image encode would derive
+    other tables when they came from the whole batch."""
     if dc_luts.dim() == 3:
         dc_luts, ac_luts = dc_luts[i], ac_luts[i]
+    n = state_i[1].shape[0]
     return _scan_bytes(*_stage_batch_pack(state_i, dc_luts, ac_luts, 1,
-                                          per_img * pack.WORDS_PER_BLOCK))
+                                          n * pack.WORDS_PER_BLOCK))
+
+
+def _fit(histos, param: EncoderParam, flags, n_groups: int, b: int,
+         share_statistics: bool):
+    """The quantizers of a batch: (per-image matrices [B][2], host arrays
+    iquant and ibias, then for the trellis the clamped quant matrices and
+    the AC code lengths of its rate model), each [2, ...] shared or
+    [B, 2, ...] per image.  `histos` feed the adaptive fit; methods
+    without it take the param's matrices."""
+    if flags["use_adaptive_quant"]:
+        per_qms, quant = _fit_quantizers(histos, param, n_groups, b,
+                                         share_statistics)
+    else:
+        per_qms = [_quant_matrices(param)] * b
+        quant = _quant_arrays(per_qms[0])
+    if flags["use_trellis"]:          # methods 7 and 8 fit adaptively
+        quant += (_clamped_quant(per_qms, share_statistics),
+                  trellis_cost_lens())
+    return per_qms, quant
+
+
+def _jpegs(layout, param, per_qms, per_tables, words_np, totals_np,
+           overflow, repack) -> list:
+    """The host tail of a batch: image i's scan (its fetched words,
+    stuffed, or `repack(i)` where `overflow[i]`, a bucket overflow) in a
+    JPEG with its matrices and tables."""
+    return [_assemble_jpeg(layout, param, qms, tables,
+                           repack(i) if overflow[i] else
+                           _finalize_scan_bytes(words_np[i],
+                                                int(totals_np[i])))
+            for i, (qms, tables) in enumerate(zip(per_qms, per_tables))]
 
 
 def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
@@ -658,20 +742,13 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
     coeffs, histos = _stage_batch_coeffs(
         src, src_kind, yuv_mode, w, h, flags["use_adaptive_quant"],
         stats_images)
-    if flags["use_adaptive_quant"]:
-        per_qms, quant = _fit_quantizers(histos, param, n_groups, b,
-                                         share_statistics)
-    else:
-        per_qms = [_quant_matrices(param)] * b
-        quant = _quant_arrays(per_qms[0])
-    iq, ib = state.arrays_to_device(*quant, device=device)
-    if flags["use_trellis"]:          # methods 7 and 8 fit adaptively
-        qq, lt_lens = state.arrays_to_device(
-            _clamped_quant(per_qms, share_statistics), trellis_cost_lens(),
-            device=device)
+    per_qms, quant = _fit(histos, param, flags, n_groups, b,
+                          share_statistics)
+    iq, ib, *trellis_arrays = state.arrays_to_device(*quant, device=device)
+    if flags["use_trellis"]:
         vlc_state, freqs = _stage_quantize_trellis(
-            coeffs, iq, ib, qq, lt_lens, flags["optimize_size"], nb_blocks,
-            b, stats_images)
+            coeffs, iq, ib, *trellis_arrays, flags["optimize_size"],
+            nb_blocks, b, stats_images)
     else:
         vlc_state, freqs = _stage_batch_quantize(
             coeffs, iq, ib, flags["optimize_size"], nb_blocks, b,
@@ -689,17 +766,11 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
         per_tables = [huffman_device.tables_from_flat(flat_np, i, n_groups)
                       for i in range(b)]
 
-    out = []
-    for i in range(b):
-        total_bits = int(totals_np[i])
-        if total_bits > bucket * 32:      # bucket overflow: re-pack alone
-            scan = _repack_one(vlc_state, dc_luts, ac_luts, i,
-                               _blocks_per_image(layout))
-        else:
-            scan = _finalize_scan_bytes(words_np[i], total_bits)
-        out.append(_assemble_jpeg(layout, param, per_qms[i], per_tables[i],
-                                  scan))
-    return out
+    per_img = _blocks_per_image(layout)
+    return _jpegs(layout, param, per_qms, per_tables, words_np, totals_np,
+                  totals_np > bucket * 32,
+                  lambda i: _repack_one(vlc_state, dc_luts, ac_luts, i,
+                                        per_img))
 
 
 def fetch_streams_batch(words: torch.Tensor, totals_np) -> np.ndarray:

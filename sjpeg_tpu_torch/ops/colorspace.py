@@ -152,6 +152,31 @@ def average_extra_luma(y_blocks: torch.Tensor, mb_w: int, mb_h: int,
     return yb.reshape(-1, 64)
 
 
+def average_extra_luma_dynamic_row(y_blocks: torch.Tensor, rows: int,
+                                   mb_w: int, width: int, sub_h: int,
+                                   clip_row: int) -> torch.Tensor:
+    """The partial-MCU-row flattening of `average_extra_luma` at a row
+    index that only the caller knows: a stripe of a height-clipped image
+    holds the image's partial MCU row at stripe-local index `clip_row`
+    (negative or >= rows: not in this stripe).  `y_blocks`:
+    [B * rows * mb_w * 4, 64], already x-clip-fixed by the static path
+    over the stripe's whole-MCU height.  fix_mcu composes over that
+    x-fix: b0 is never rewritten, b1 is recomputed from b0, and with
+    sub_h <= 8 b2/b3 are overwritten.  Bit-identical to the static
+    y-clip fixup of the whole image."""
+    if not 0 <= clip_row < rows:
+        return y_blocks
+    mb_x_max = width // 16
+    yb = y_blocks.reshape(-1, rows, mb_w, 4, 64).clone()
+    row = yb[:, clip_row]
+    fixed = fix_mcu(row, 16, sub_h)
+    if mb_x_max < mb_w:
+        fixed[:, mb_x_max] = fix_mcu(row[:, mb_x_max],
+                                     width - mb_x_max * 16, sub_h)
+    yb[:, clip_row] = fixed
+    return yb.reshape(-1, 64)
+
+
 def rgb_to_blocks(rgb: torch.Tensor, yuv_mode: int, width: int,
                   height: int):
     """RGB [..., H, W, 3] uint8 -> list of [N_c, 64] int32 sample blocks.

@@ -52,12 +52,15 @@ def quantize_error(coeffs: torch.Tensor, iquant, bias,
     return (err * err).sum(dim=-1)
 
 
-def store_histo(coeffs: torch.Tensor, n_images: int = 1) -> torch.Tensor:
+def store_histo(coeffs: torch.Tensor, n_images: int = 1,
+                valid=None) -> torch.Tensor:
     """[N, 64] coefficients -> [64, MAX_HISTO_DCT_COEFF] int32 histogram of
     |c| >> HSHIFT per position, or [B, 64, bins] segmented per image when
     n_images > 1 (rows image-major with equal block counts).  Magnitudes
-    past the last bin are dropped (the C reference semantics).  An
-    integer scatter-add is exact, so no matmul trick is needed."""
+    past the last bin are dropped (the C reference semantics).  `valid`:
+    optional [N] bool; blocks with False count nothing (the padding
+    blocks of a ragged stripe).  An integer scatter-add is exact, so no
+    matmul trick is needed."""
     nbins = C.MAX_HISTO_DCT_COEFF
     mag = coeffs.to(torch.int32).abs() >> C.HSHIFT
     per = mag.shape[0] // n_images
@@ -66,7 +69,10 @@ def store_histo(coeffs: torch.Tensor, n_images: int = 1) -> torch.Tensor:
     pos = torch.arange(64, device=dev)
     idx = (img[:, None] * 64 + pos[None, :]) * nbins + mag
     dump = n_images * 64 * nbins                  # slot for dropped values
-    idx = torch.where(mag < nbins, idx, dump)
+    keep = mag < nbins
+    if valid is not None:
+        keep = keep & valid[:, None]
+    idx = torch.where(keep, idx, dump)
     hist = torch.zeros(dump + 1, dtype=torch.int32, device=dev)
     hist.scatter_add_(0, idx.reshape(-1),
                       torch.ones_like(idx, dtype=torch.int32).reshape(-1))

@@ -54,15 +54,19 @@ def run_levels(qblocks: torch.Tensor, dtype=torch.int64) -> dict:
             "last": prev[:, -1]}
 
 
-def dc_diff_codes(dc: torch.Tensor, n_images: int = 1) -> torch.Tensor:
+def dc_diff_codes(dc: torch.Tensor, n_images: int = 1,
+                  prev=None) -> torch.Tensor:
     """[N] signed quantized DC (component scan order) -> int32 codes.
 
     code = n | (suffix << 4); the predictor starts at 0 (src/enc.cc:482-499)
     and resets at every image boundary (N = n_images * blocks per image,
-    image-major).
+    image-major).  `prev`: optional [n_images] predictor each image starts
+    from instead of 0 (a stripe's carried-in DC, parallel/shard.py).
     """
     d2 = dc.to(torch.int64).reshape(n_images, -1)
-    prev = torch.nn.functional.pad(d2[:, :-1], (1, 0))
+    prev = torch.cat([torch.zeros_like(d2[:, :1]) if prev is None
+                      else prev.to(torch.int64).reshape(n_images, 1),
+                      d2[:, :-1]], dim=1)
     diff = (d2 - prev).reshape(-1)
     n = torch.where(diff == 0, 0, calc_log2(diff.abs()))
     suff = torch.where(diff < 0, (diff - 1) & ((1 << n) - 1), diff)

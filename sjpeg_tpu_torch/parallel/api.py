@@ -1,0 +1,427 @@
+"""Public sharded encode API: JPEGs out of a (dp, sp) mesh of devices.
+
+`encode_batch_sharded` runs the encode, adaptive quantization and
+per-image two-pass Huffman optimization included, over a 2-D mesh (dp =
+images, sp = MCU-row stripes within an image), and produces the bytes of
+the one-device `engine.encode_batch` (sjpeg_tpu.parallel.api's contract).
+Its stages are the one-device engine's staged stages run once a stripe, on
+the stripe's device, with the engine's kernels:
+
+  1. colour + fDCT per stripe (the fdct kernel) + per-image coefficient
+     histograms, summed over sp on the dp row's lead device  -> host
+     lambda fit (one fetch a dp row)
+  2. quantize (or the trellis kernel, method 7) + run/levels; the DC
+     chains carry across stripes: each stripe hands its last quantized DC
+     of each image and component to the next stripe's device; per-image
+     symbol frequencies summed over sp          -> tables on the lead
+     device (the merge_codesizes kernel; shared tables on the host)
+  3. VLC + per-block pack (vlc_pack) + per-stripe compaction
+     (stream_concat), padding blocks masked out  -> one stream_concat
+     launch a dp row stitches the stripes -> one fetch a dp row -> host
+     tail (stuffing, markers)
+
+Launches are asynchronous and the quantizers are uploaded before the
+stripe loops, so stripes on distinct devices are meant to overlap; no run
+on more than one card has measured that yet.  Stripes on a repeated
+device run one after another.  Ragged geometry (MCU
+rows not divisible by sp, a partial last MCU row, fewer MCU rows than
+stripes) pads each stripe to whole MCU rows by edge replication and masks
+the padding blocks out of the histograms, the frequencies and the
+bitstream.  A batch not divisible by the dp rows is padded with copies of
+image 0, whose outputs are dropped and whose statistics never count.
+
+Sharp YUV converts per dp row (the sharp_yuv kernel on the row's images)
+and encodes the planes' stripes; a mixed YUV_AUTO batch runs as one
+sharded sub-batch per mode.  Delegated to the one-device engine on the
+mesh's first device, as sjpeg_tpu.parallel.api delegates: sharp images
+with a side <= 4, sharp searches, YUV_AUTO under several processes, and
+custom search hooks.  The sharded search (passes > 1 with a target) is
+not ported yet and raises.
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .. import constants as C
+from .. import engine, pipeline, sharp_yuv, state
+from ..ops import fdct, huffman_device, pack, quantize
+from ..params import EncoderParam, method_flags
+from .mesh import Mesh, default_mesh
+from .shard import _dc_codes_sharded, _local_blocks, stitch_shard_streams
+
+
+def encode_batch_sharded(rgbs, param: Optional[EncoderParam] = None,
+                         mesh: Optional[Mesh] = None,
+                         bits_per_pixel_budget: float = 4.0,
+                         share_statistics: bool = False):
+    """Encode a uint8 batch [B, H, W, 3] (numpy or torch) over a (dp, sp)
+    mesh (`make_mesh`; `default_mesh()` when None).  Returns a list of
+    JPEG byte strings, byte-identical to `engine.encode_batch`.
+
+    Under several processes (`init_distributed`, dp laid across them),
+    `rgbs` is this process's LOCAL images, the same count and shape in
+    every process, and the list holds their JPEGs, in order; image data
+    never crosses processes, and with share_statistics the shared tables
+    span each process's local batch."""
+    param = param or EncoderParam()
+    mesh = mesh or default_mesh()
+    b, h, w = rgbs.shape[:3]
+    engine._check_size(w, h)
+    if mesh.world > 1:
+        _check_processes(mesh, tuple(rgbs.shape))
+    lead = mesh.lead()
+    yuv_mode = param.yuv_mode
+    if yuv_mode == C.YUV_AUTO and mesh.world == 1:
+        rgbs = engine._to_device(rgbs, lead)
+        groups = {}
+        for i, m in enumerate(engine.auto_modes(rgbs)):
+            groups.setdefault(m, []).append(i)
+        if len(groups) > 1:
+            out = [None] * b
+            for m, idxs in groups.items():
+                res = encode_batch_sharded(
+                    rgbs[torch.tensor(idxs, device=lead)],
+                    dataclasses.replace(param, yuv_mode=m), mesh,
+                    bits_per_pixel_budget, share_statistics)
+                for i, jpeg in zip(idxs, res):
+                    out[i] = jpeg
+            return out
+        yuv_mode = next(iter(groups))
+    if yuv_mode != C.YUV_AUTO:
+        param = dataclasses.replace(param, yuv_mode=yuv_mode)
+    search = engine._is_search(param)
+    sharp = yuv_mode == C.YUV_SHARP
+    if (yuv_mode == C.YUV_AUTO or (search and param.search_hook is not None)
+            or (sharp and (search or min(w, h) <= sharp_yuv.MIN_DIMENSION))):
+        return engine.encode_batch(rgbs, param, bits_per_pixel_budget,
+                                   share_statistics, device=lead)
+    if search:
+        raise NotImplementedError(
+            "encode_batch_sharded: the sharded target-size / target-PSNR "
+            "search is not ported yet (ROADMAP A9b); engine.encode_batch "
+            "runs it on one device")
+    run = _Sharded(rgbs, param, mesh, yuv_mode, bits_per_pixel_budget,
+                   share_statistics)
+    for stage in run.stages():
+        stage()
+    return run.out
+
+
+def _check_processes(mesh: Mesh, shape: tuple) -> None:
+    """Every process must encode the same local batch shape on the same
+    mesh shape: one all_gather of a few ints over the (gloo) group."""
+    mine = torch.tensor([*shape, mesh.dp, mesh.sp], dtype=torch.int64)
+    every = [torch.empty_like(mine) for _ in range(mesh.world)]
+    dist.all_gather(every, mine)
+    if any(not torch.equal(t, mine) for t in every):
+        raise ValueError("encode_batch_sharded: processes differ in batch "
+                         "shape or mesh: "
+                         + str([t.tolist() for t in every]))
+
+
+def _rows(t: torch.Tensor, start: int, n: int, limit: int) -> torch.Tensor:
+    """Rows [start, start + n) of t's dim 1, the rows past `limit` replaced
+    by row limit - 1 (edge padding)."""
+    if start + n <= limit:
+        return t[:, start:start + n]
+    idx = torch.arange(start, start + n, device=t.device).clamp(max=limit - 1)
+    return t.index_select(1, idx)
+
+
+def _psum(parts, device) -> torch.Tensor:
+    """The sum over sp: each stripe's tensor moved to `device` and added."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
+@dataclasses.dataclass
+class _Geometry:
+    """Stripe geometry: whole MCU rows a stripe (`rows`), the real MCU rows
+    of each stripe (`vrows`), the stripe-local index of a partial last MCU
+    row (`crow`), and the words of each stripe's stream (`bucket`)."""
+    layout: pipeline.ComponentLayout
+    sp: int
+    rows: int
+    stripe_h: int
+    sub_h_partial: int
+    vrows: list
+    crow: list
+    bucket: int
+
+    @classmethod
+    def of(cls, yuv_mode: int, w: int, h: int, sp: int,
+           bits_per_pixel_budget: float):
+        layout = pipeline.component_layout(yuv_mode, w, h)
+        mcu_h = layout.block_h
+        rows = -(-layout.mb_h // sp)
+        sub_h = h - (layout.mb_h - 1) * mcu_h if h % mcu_h else 0
+        vrows = [min(max(layout.mb_h - s * rows, 0), rows)
+                 for s in range(sp)]
+        crow = [(layout.mb_h - 1) - s * rows if sub_h else -1
+                for s in range(sp)]
+        per_img_blocks = layout.mb_w * rows * sp * sum(layout.nb_blocks)
+        bucket = int(min(per_img_blocks // sp * pack.WORDS_PER_BLOCK,
+                         max(1024, w * h * bits_per_pixel_budget / 32 / sp)))
+        bucket = -(-bucket // pack.WORDS_PER_BLOCK) * pack.WORDS_PER_BLOCK
+        return cls(layout, sp, rows, rows * mcu_h, sub_h, vrows, crow, bucket)
+
+    def valid(self, s: int, blocks_per_row: int, b_l: int, device):
+        """[b_l * rows * blocks_per_row] bool mask of the blocks of stripe s
+        in real MCU rows, None when the stripe has no padding row."""
+        if self.vrows[s] == self.rows:
+            return None
+        per = self.rows * blocks_per_row
+        keep = torch.arange(per, device=device) < self.vrows[s] * (
+            blocks_per_row)
+        return keep.repeat(b_l)
+
+
+class _Sharded:
+    """One sharded encode, stage by stage (`stages()`); the JPEGs land in
+    `out`.  Per stripe: `src` (its samples), `coeffs`, `state` (VLC
+    fields, DC codes, groups), `streams`; per dp row: the sums, the
+    tables and the stitched streams."""
+
+    def __init__(self, rgbs, param: EncoderParam, mesh: Mesh, yuv_mode: int,
+                 bits_per_pixel_budget: float, share_statistics: bool):
+        self.param, self.mesh, self.share = param, mesh, share_statistics
+        self.flags = method_flags(param.method)
+        self.sharp = yuv_mode == C.YUV_SHARP
+        self.yuv_mode = C.YUV_420 if self.sharp else yuv_mode
+        src = rgbs if isinstance(rgbs, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(rgbs))
+        if src.dtype != torch.uint8:
+            raise TypeError(f"expected uint8 samples, got {src.dtype}")
+        self.b_real, self.h, self.w = src.shape[:3]
+        # pad to whole dp rows with copies of image 0 (outputs dropped)
+        pad_b = -self.b_real % mesh.dp_local
+        if pad_b:
+            src = torch.cat([src, src[:1].expand(pad_b, *src.shape[1:])])
+        self.src = src
+        self.b_l = src.shape[0] // mesh.dp_local
+        self.geo = _Geometry.of(self.yuv_mode, self.w, self.h, mesh.sp,
+                                bits_per_pixel_budget)
+        layout = self.geo.layout
+        self.nb_blocks = tuple(layout.nb_blocks)
+        self.n_groups = 2 if layout.nb_comps > 1 else 1
+        self.out = []
+
+    def stages(self):
+        return [self.coeffs, self.fit, self.quantize, self.tables,
+                self.pack, self.stitch, self.fetch, self.tail]
+
+    def _grid(self):
+        """(row, stripe, device) over this process's grid."""
+        for r, row in enumerate(self.mesh.devices):
+            for s, dev in enumerate(row):
+                yield r, s, dev
+
+    def _images(self, r: int) -> slice:
+        return slice(r * self.b_l, (r + 1) * self.b_l)
+
+    def _stripe_sources(self, r: int):
+        """Dp row r's images on its lead device -> each stripe's samples
+        (RGB, or the sharp conversion's planes), edge-padded to whole MCU
+        rows."""
+        geo, h = self.geo, self.h
+        row = self.src[self._images(r)].to(self.mesh.lead(r))
+        if not self.sharp:
+            return [_rows(row, s * geo.stripe_h, geo.stripe_h, h)
+                    for s in range(geo.sp)]
+        y, u, v = sharp_yuv.sharp_rgb_to_yuv420(row)
+        half, ch = geo.stripe_h // 2, u.shape[1]
+        return [(_rows(y, s * geo.stripe_h, geo.stripe_h, h),
+                 _rows(u, s * half, half, ch), _rows(v, s * half, half, ch))
+                for s in range(geo.sp)]
+
+    # ---- stage 1: colour + fDCT (+ histograms) --------------------------
+    def coeffs(self):
+        geo, b_l = self.geo, self.b_l
+        mb_w = geo.layout.mb_w
+        self.coef = [[None] * geo.sp for _ in self.mesh.devices]
+        self.histos = []
+        for r, row in enumerate(self.mesh.devices):
+            hl, hc = [], []
+            for s, (x, dev) in enumerate(zip(self._stripe_sources(r), row)):
+                x = (x.to(dev) if isinstance(x, torch.Tensor)
+                     else tuple(p.to(dev) for p in x))
+                blocks = _local_blocks(
+                    x, "planes" if self.sharp else "rgb", self.yuv_mode,
+                    self.w, geo.stripe_h, geo.rows, mb_w, geo.sub_h_partial,
+                    geo.crow[s])
+                co = [fdct.fdct_blocks(bl.contiguous()) for bl in blocks]
+                self.coef[r][s] = co
+                if not self.flags["use_adaptive_quant"]:
+                    continue
+                hl.append(quantize.store_histo(
+                    co[0], b_l, geo.valid(s, mb_w * self.nb_blocks[0], b_l,
+                                          dev)).reshape(b_l, 64, -1))
+                if len(co) > 1:
+                    vc = geo.valid(s, mb_w, b_l, dev)
+                    hc.append((quantize.store_histo(co[1], b_l, vc)
+                               + quantize.store_histo(co[2], b_l, vc)
+                               ).reshape(b_l, 64, -1))
+                else:
+                    hc.append(torch.zeros_like(hl[-1]))
+            if hl:
+                self.histos.append(torch.stack([_psum(hl, row[0]),
+                                                _psum(hc, row[0])]))
+
+    # ---- the host lambda fit --------------------------------------------
+    def fit(self):
+        b_real = self.b_real
+        pad = self.b_l * self.mesh.dp_local - b_real
+        hh = None
+        if self.flags["use_adaptive_quant"]:
+            # one fetch a dp row; padding images never count
+            hh = torch.cat([t.cpu() for t in self.histos], dim=1)[:, :b_real]
+            hh = (hh[0].sum(0), hh[1].sum(0)) if self.share else tuple(hh)
+            del self.histos
+        per_qms, quant = engine._fit(hh, self.param, self.flags,
+                                     self.n_groups, b_real, self.share)
+        self.per_qms = per_qms + per_qms[:1] * pad
+        self.quant = tuple(np.concatenate([a, np.repeat(a[:1], pad, 0)])
+                           if a.ndim == 3 else a for a in quant)
+        # the quantizers of each dp row on its lead device, uploaded here so
+        # that the quantize stage's loop never waits on a pageable upload
+        self.row_arrays = [state.arrays_to_device(
+            *(a[self._images(r)] if a.ndim == 3 else a for a in self.quant),
+            device=self.mesh.lead(r)) for r in range(self.mesh.dp_local)]
+
+    # ---- stage 2: quantize (or the trellis) + DC chains (+ frequencies) -
+    def quantize(self):
+        geo, b_l = self.geo, self.b_l
+        with_stats = self.flags["optimize_size"]
+        per_row = geo.layout.mb_w * sum(self.nb_blocks)
+        self.state = [[None] * geo.sp for _ in self.mesh.devices]
+        self.freqs = []
+        for r, row in enumerate(self.mesh.devices):
+            prev = [None] * len(self.nb_blocks)
+            fdc, fac = [], []
+            for s, dev in enumerate(row):
+                co = self.coef[r][s]
+                arrays = [a.to(dev) for a in self.row_arrays[r]]
+                iq, ib = arrays[:2]
+                dcq = engine._dc_quantized(co, iq, ib, b_l)
+                codes = engine._interleave_dc(
+                    [_dc_codes_sharded(d, p) for d, p in zip(dcq, prev)],
+                    self.nb_blocks)
+                if s + 1 < geo.sp:        # hand the last DCs down
+                    prev = [d[:, -1].to(row[s + 1]) for d in dcq]
+                valid = geo.valid(s, per_row, b_l, dev)
+                if self.flags["use_trellis"]:
+                    st, freqs = engine._stage_quantize_trellis(
+                        co, *arrays, with_stats, self.nb_blocks, b_l, b_l,
+                        dc_codes=codes, valid=valid)
+                else:
+                    st, freqs = engine._stage_batch_quantize(
+                        co, iq, ib, with_stats, self.nb_blocks, b_l, b_l,
+                        dc_codes=codes, valid=valid)
+                self.state[r][s] = st
+                if with_stats:
+                    fdc.append(freqs[0].reshape(b_l, 2, -1))
+                    fac.append(freqs[1].reshape(b_l, 2, -1))
+            if with_stats:
+                self.freqs.append((_psum(fdc, row[0]), _psum(fac, row[0])))
+        del self.coef
+
+    # ---- Huffman tables ---------------------------------------------------
+    def tables(self):
+        flags, mesh = self.flags, self.mesh
+        b_local = self.b_l * mesh.dp_local
+        self.desc = None
+        if flags["optimize_size"] and not self.share:
+            # per-image optimal tables on each lead device, no host read
+            built = [engine._stage_tables(f, flags, self.n_groups, self.b_l,
+                                          False, mesh.lead(r))
+                     for r, f in enumerate(self.freqs)]
+            self.luts = [bt[:2] for bt in built]
+            self.desc = [bt[3] for bt in built]
+            self.per_tables = None
+        else:
+            freqs = None
+            if flags["optimize_size"]:    # one fetch a dp row
+                both = torch.cat([torch.cat([d, a], dim=2).cpu()
+                                  for d, a in self.freqs])[:self.b_real]
+                freqs = (both[..., :12].sum(0), both[..., 12:].sum(0))
+            dcl, acl, self.per_tables, _ = engine._stage_tables(
+                freqs, flags, self.n_groups, b_local, True, mesh.lead())
+            self.luts = [(dcl, acl)] * mesh.dp_local
+        del self.freqs
+
+    # ---- stage 3: VLC + pack + per-stripe compaction ----------------------
+    def pack(self):
+        geo, b_l = self.geo, self.b_l
+        per_row = geo.layout.mb_w * sum(self.nb_blocks)
+        self.streams = []
+        for r, row in enumerate(self.mesh.devices):
+            words, totals = [], []
+            for s, dev in enumerate(row):
+                dcl, acl = (t.to(dev) for t in self.luts[r])
+                wd, tt = engine._stage_batch_pack(
+                    self.state[r][s], dcl, acl, b_l, geo.bucket,
+                    block_valid=geo.valid(s, per_row, b_l, dev))
+                words.append(wd)
+                totals.append(tt)
+            self.streams.append((words, totals))
+
+    # ---- the stitch: one stream_concat launch a dp row --------------------
+    def stitch(self):
+        self.stitched = []
+        for r, (words, totals) in enumerate(self.streams):
+            lead = self.mesh.lead(r)
+            wd = torch.stack([x.to(lead) for x in words], dim=1)
+            tt = torch.stack([x.to(lead) for x in totals], dim=1)
+            iw, it = stitch_shard_streams(wd, tt)
+            self.stitched.append((iw, torch.cat([tt, it[:, None]], dim=1)))
+        del self.streams
+
+    # ---- fetch: totals, used words and DHT descriptions, a dp row each ----
+    def fetch(self):
+        """Per image: its stitched words and total, whether a stripe
+        overflowed its bucket, and its Huffman tables."""
+        self.words, self.totals, self.overflow = [], [], []
+        self.host_tables = self.per_tables or []
+        for r, (iw, tt) in enumerate(self.stitched):
+            tt = tt.cpu().numpy()
+            self.totals += list(tt[:, -1])
+            self.words += list(engine.fetch_streams_batch(iw, tt[:, -1]))
+            self.overflow += list((tt[:, :-1] > self.geo.bucket * 32).any(1))
+            if self.desc is not None:
+                desc = self.desc[r].cpu().numpy()
+                self.host_tables += [huffman_device.tables_from_flat(
+                    desc, j, self.n_groups) for j in range(self.b_l)]
+        del self.stitched
+
+    # ---- host tail: stuffing, markers; overflowing images re-packed -------
+    def tail(self):
+        n = self.b_real
+        self.out = engine._jpegs(
+            self.geo.layout, self.param, self.per_qms[:n],
+            self.host_tables[:n], self.words, self.totals, self.overflow,
+            lambda i: self._repack(*divmod(i, self.b_l)))
+
+    def _repack(self, r: int, j: int) -> bytes:
+        """Scan bytes of image j of dp row r after a stripe overflowed its
+        bucket: its real blocks' VLC state from every stripe, on the lead
+        device, packed again by the one-device engine's `_repack_image`."""
+        geo, lead = self.geo, self.mesh.lead(r)
+        per_row = geo.layout.mb_w * sum(self.nb_blocks)
+        parts = []
+        for s, st in enumerate(self.state[r]):
+            per_l = st[1].shape[0] // self.b_l
+            rl, dc, grp = engine._state_rows(
+                st, slice(j * per_l, j * per_l + geo.vrows[s] * per_row))
+            parts.append(({k: v.to(lead) for k, v in rl.items()},
+                          dc.to(lead), grp.to(lead)))
+        state_i = ({k: torch.cat([p[0][k] for p in parts])
+                    for k in parts[0][0]},
+                   torch.cat([p[1] for p in parts]),
+                   torch.cat([p[2] for p in parts]))
+        return engine._repack_image(state_i, *self.luts[r], j)

@@ -31,6 +31,7 @@ from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, riskiness, sharp_yuv
 from sjpeg_tpu_torch.ops import riskiness as risk_dev
 from sjpeg_tpu_torch.params import EncoderParam
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -13,6 +13,7 @@ import pytest
 from sjpeg_tpu import cli as jcli
 
 from sjpeg_tpu_torch import cli
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _write_ppm(path, rgb):

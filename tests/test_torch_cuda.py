@@ -626,3 +626,98 @@ def test_auto_batch_gpu_matches_cpu():
     param = EncoderParam(yuv_mode=C.YUV_SHARP)
     assert (engine.encode_rgb(rgb[2], param)
             == engine.encode_rgb(rgb[2], param, device="cpu"))
+
+
+# ---- the sharded API (sjpeg_tpu_torch.parallel) on the card ---------------
+
+SHARDED_GPU_CASES = {
+    # name: (EncoderParam keywords, (b, h, w), (dp, sp), share, budget)
+    "m0_1x2": (dict(huffman_compress=False, adaptive_quantization=False,
+                    yuv_mode=C.YUV_420), (4, 64, 72), (1, 2), False, 4.0),
+    "m4_2x2": (dict(yuv_mode=C.YUV_420), (4, 64, 72), (2, 2), False, 4.0),
+    "m7_1x4": (dict(use_trellis=True, yuv_mode=C.YUV_420), (4, 64, 72),
+               (1, 4), False, 4.0),
+    "m4_444_2x1": (dict(yuv_mode=C.YUV_444), (4, 64, 72), (2, 1), False,
+                   4.0),
+    "m1_400_1x2": (dict(adaptive_quantization=False, yuv_mode=C.YUV_400),
+                   (4, 64, 72), (1, 2), False, 4.0),
+    "ragged_2x4": (dict(yuv_mode=C.YUV_420), (2, 40, 72), (2, 4), False,
+                   4.0),
+    "shared_odd_2x1": (dict(yuv_mode=C.YUV_420), (3, 64, 72), (2, 1), True,
+                       4.0),
+    "overflow_2x2": (dict(quality=100, yuv_mode=C.YUV_420), (2, 96, 96),
+                     (2, 2), False, 0.0001),
+    "overflow_shared_2x2": (dict(quality=100, yuv_mode=C.YUV_420),
+                            (2, 96, 96), (2, 2), True, 0.0001),
+    "sharp_2x2": (dict(yuv_mode=C.YUV_SHARP), (3, 40, 72), (2, 2), False,
+                  4.0),
+    "auto_2x2": (dict(), (3, 64, 64), (2, 2), False, 4.0),
+}
+
+
+def _sharded_batch(name, b, h, w):
+    rng = np.random.RandomState(len(name))
+    yy, xx = np.mgrid[0:h, 0:w]
+    grad = np.stack([xx * 4 % 256, yy * 4 % 256, (xx + yy) % 256], -1)
+    x = np.clip(grad + rng.randint(-30, 30, (b, h, w, 3)), 0, 255)
+    if name.startswith(("overflow", "auto")):
+        x[0] = rng.randint(0, 256, (h, w, 3))       # noise
+    return x.astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SHARDED_GPU_CASES))
+def test_sharded_gpu_matches_cpu(name):
+    """encode_batch_sharded on meshes of the card (cuda:0 repeated) ==
+    engine.encode_batch on the card == the CPU path, which tier-1 holds
+    equal to sjpeg_tpu."""
+    _need_cuda()
+    from sjpeg_tpu_torch.parallel.api import encode_batch_sharded
+    from sjpeg_tpu_torch.parallel.mesh import make_mesh
+    kw, (b, h, w), (dp, sp), share, budget = SHARDED_GPU_CASES[name]
+    x = _sharded_batch(name, b, h, w)
+    param = EncoderParam(**kw)
+    mesh = make_mesh(dp, sp, [torch.device("cuda", 0)] * (dp * sp))
+    got = encode_batch_sharded(x, param, mesh, budget, share)
+    assert got == engine.encode_batch(x, param, budget, share)
+    assert got == engine.encode_batch(x, param, budget, share, device="cpu")
+
+
+@pytest.mark.cuda
+def test_sharded_distinct_devices_on_gpu():
+    """With two or more cards, a (2, 2) mesh over distinct devices gives
+    the one-device bytes (the DC hand-over and the sums cross devices)."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from sjpeg_tpu_torch.parallel.api import encode_batch_sharded
+    from sjpeg_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % n) for i in range(4)]
+    x = _sharded_batch("distinct", 4, 64, 72)
+    param = EncoderParam(yuv_mode=C.YUV_420, use_trellis=True)
+    assert (encode_batch_sharded(x, param, make_mesh(2, 2, devs))
+            == engine.encode_batch(x, param))
+
+
+@pytest.mark.cuda
+def test_stitch_matches_plain_on_gpu():
+    """The stitch's stream_concat launch == stream_concat_plain on the
+    same 64-word pieces, for stripe streams of 0, 1, 31, 32, 2047, 2048
+    and 2049 bits."""
+    _need_cuda()
+    from sjpeg_tpu_torch.parallel.shard import stitch_shard_streams
+    rng = np.random.RandomState(23)
+    lens = np.array([0, 1, 31, 32, 2047, 2048, 2049])
+    b, s, bucket = 3, len(lens), 128
+    totals = np.stack([rng.permutation(lens) for _ in range(b)])
+    pieces = np.clip(totals.reshape(-1, 1) - 2048 * np.arange(2), 0, 2048)
+    words = random_streams(rng, pieces.reshape(-1))
+    w = torch.from_numpy(words).cuda().reshape(b, s, bucket)
+    t = torch.from_numpy(totals.astype(np.int32)).cuda()
+    got = stitch_shard_streams(w, t)
+    want = stream_concat.stream_concat_plain(
+        w.reshape(-1, 64), torch.from_numpy(pieces.reshape(-1).astype(
+            np.int32)).cuda(), b, s * bucket)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)

@@ -14,6 +14,7 @@ from sjpeg_tpu.params import EncoderParam as JaxParam
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine
 from sjpeg_tpu_torch.params import EncoderParam
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [(2, 40, 24), (2, 64, 48)]      # (batch, height, width)
 

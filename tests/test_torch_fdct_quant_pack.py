@@ -28,6 +28,7 @@ from sjpeg_tpu.params import quant_matrices_for_quality as j_qmq
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, state
 from sjpeg_tpu_torch.ops import fdct, quant_pack
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 NB = (4, 1, 1)

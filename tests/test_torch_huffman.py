@@ -31,6 +31,7 @@ from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch.ops import huffman_device as hd
 from sjpeg_tpu_torch.ops import merge_codesizes as mc
 from sjpeg_tpu_torch.ops import quantize, vlc, vlc_pack
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
 

@@ -36,6 +36,7 @@ from sjpeg_tpu_torch import engine, state
 from sjpeg_tpu_torch.ops import (colorspace, quantize, sample_pack,
                                  stream_concat, vlc)
 from sjpeg_tpu_torch.params import TARGET_SIZE, EncoderParam, SearchHook
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}

@@ -27,6 +27,7 @@ from sjpeg_tpu_torch import engine, spec, state
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch.ops import colorspace, fdct, pack, quantize, vlc
 from sjpeg_tpu_torch.ops.stream_concat import stream_concat
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [(2, 40, 24), (2, 64, 48)]      # (batch, height, width)
 

@@ -17,6 +17,7 @@ from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine
 from sjpeg_tpu_torch.ops import huffman_device
 from sjpeg_tpu_torch.params import EncoderParam
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPE = (2, 40, 24)          # (batch, height, width): not a multiple of 16
 METHODS = {1: dict(adaptive_quantization=False),

@@ -23,6 +23,7 @@ import torch
 from sjpeg_tpu.ops import riskiness as jrisk_dev
 
 from sjpeg_tpu_torch.ops import riskiness as risk_dev
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 DEN = 2 * 100 * 100 * 100

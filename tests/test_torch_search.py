@@ -37,6 +37,7 @@ from sjpeg_tpu_torch.params import (TARGET_PSNR, TARGET_SIZE, EncoderParam,
 from sjpeg_tpu_torch.tools import estimate_quality
 
 from conftest import make_test_image
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 NB = {C.YUV_420: (4, 1, 1), C.YUV_444: (1, 1, 1), C.YUV_400: (1,)}
 
@@ -305,8 +306,13 @@ def _run(eng, name, imgs, param, **kw):
     return eng.encode_batch(imgs, param, **kw)
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_search_bytes_match_jax(name):
+# cases run by test_torch_search_bytes.py, so that --dist loadfile gives
+# the batched search's byte cases two workers
+BYTES_FILE_CASES = ("passes10", "size_m7", "psnr_m4", "psnr_m7",
+                    "gray_planar", "nv12", "overflow")
+
+
+def check_search_bytes(name):
     """encode_batch (and the planar entry points) with passes > 1 and a
     target == sjpeg_tpu.engine.encode_batch, byte for byte."""
     imgs = _batch()
@@ -326,6 +332,14 @@ def test_search_bytes_match_jax(name):
     for g, w in zip(got, want):
         assert g[:2] == b"\xff\xd8" and g[-2:] == b"\xff\xd9"
         assert g == w
+
+
+@pytest.mark.parametrize("name", [n for n in CASES
+                                  if n not in BYTES_FILE_CASES])
+def test_search_bytes_match_jax(name):
+    """encode_batch (and the planar entry points) with passes > 1 and a
+    target == sjpeg_tpu.engine.encode_batch, byte for byte."""
+    check_search_bytes(name)
 
 
 def test_passes_without_target_encode_once():

@@ -21,6 +21,7 @@ from sjpeg_tpu.params import SearchHook as JHook
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, kernels
 from sjpeg_tpu_torch.params import EncoderParam, SearchHook
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rgb(b: int, h: int, w: int, seed: int) -> np.ndarray:

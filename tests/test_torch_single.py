@@ -17,6 +17,7 @@ import sjpeg_tpu_torch
 from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine
 from sjpeg_tpu_torch.params import EncoderParam
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 METHODS = {0: dict(huffman_compress=False, adaptive_quantization=False),
            1: dict(adaptive_quantization=False),
@@ -135,6 +136,50 @@ def test_encode_matches_jax():
     jp, tp = _params(4, yuv_mode=C.YUV_420)
     _same(sjpeg_tpu_torch.encode(RGB, tp, device="cpu"),
           sjpeg_tpu.encode(RGB, jp))
+
+
+def test_top_level_names_cover_jax():
+    """`from sjpeg_tpu_torch import *` gives every name of sjpeg_tpu's
+    __all__, with the same constants."""
+    assert set(sjpeg_tpu.__all__) <= set(sjpeg_tpu_torch.__all__)
+    ns = {}
+    exec("from sjpeg_tpu_torch import *", ns)
+    assert set(sjpeg_tpu.__all__) <= set(ns)
+    for name in sjpeg_tpu.__all__:
+        if name.startswith(("YUV_", "TARGET_")):
+            assert ns[name] == getattr(sjpeg_tpu, name), name
+
+
+@pytest.mark.parametrize("entry", ["encode_host", "rgb", "gray", "yuv"])
+def test_host_backend_matches_jax(entry):
+    """encode(rgb, p, "host") and host_encode_rgb / _gray / _yuv (the
+    plain path on the CPU) == sjpeg_tpu's host encoder."""
+    jp, tp = _params(4, yuv_mode=C.YUV_420)
+    if entry == "encode_host":
+        got = sjpeg_tpu_torch.encode(RGB, tp, "host")
+        want = sjpeg_tpu.encode(RGB, jp, "host")
+    elif entry == "rgb":
+        got = sjpeg_tpu_torch.host_encode_rgb(ODD, tp)
+        want = sjpeg_tpu.host_encode_rgb(ODD, jp)
+    elif entry == "gray":
+        got = sjpeg_tpu_torch.host_encode_gray(GRAY, tp)
+        want = sjpeg_tpu.host_encode_gray(GRAY, jp)
+    else:
+        planes = _planes(RGB, True)
+        got = sjpeg_tpu_torch.host_encode_yuv(*planes, True, tp)
+        want = sjpeg_tpu.host_encode_yuv(*planes, True, jp)
+    _same(got, want)
+
+
+def test_encode_backend_names():
+    """"auto" and "tpu" run the device path (here on device="cpu"); an
+    unknown backend raises."""
+    tp = _params(0, yuv_mode=C.YUV_420)[1]
+    want = sjpeg_tpu_torch.encode(RGB, tp, "host")
+    assert sjpeg_tpu_torch.encode(RGB, tp, "auto", device="cpu") == want
+    assert sjpeg_tpu_torch.encode(RGB, tp, "tpu", device="cpu") == want
+    with pytest.raises(ValueError, match="backend"):
+        sjpeg_tpu_torch.encode(RGB, tp, "bogus")
 
 
 @pytest.mark.parametrize("mode", [C.YUV_AUTO, C.YUV_SHARP])

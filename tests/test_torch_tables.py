@@ -18,6 +18,7 @@ import torch
 from chip_smoke import adversarial_freq_rows
 from sjpeg_tpu_torch.ops import huffman_device as hd
 from sjpeg_tpu_torch.ops import merge_codesizes as mc
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

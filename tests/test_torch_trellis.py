@@ -27,6 +27,7 @@ from sjpeg_tpu_torch import constants as C
 from sjpeg_tpu_torch import engine, huffman
 from sjpeg_tpu_torch.ops import trellis
 from sjpeg_tpu_torch.params import EncoderParam
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPE = (2, 40, 24)          # (batch, height, width): not a multiple of 16
