@@ -80,7 +80,20 @@ against the plain PyTorch versions on the same card:
   0-2,049 bits and the main batch's stripes); the wrappers' launch
   counts of each call and torch.profiler's of one; median-of-3 ms
   beside encode_batch's; a host-clock stage breakdown.  The kernels
-  line's rows gain `sharded_launches`.
+  line's rows gain `sharded_launches`;
+- the sharded search (target size / PSNR through encode_batch_sharded),
+  through fdct, trellis, merge_codesizes, vlc_pack and stream_concat.
+  Phase sharded_search (after sharded): size with methods 4 and 7 and
+  PSNR with method 4 on (2, 2), size with method 0 on (1, 4), every
+  case's bytes vs engine.encode_batch on the card; passes run, each
+  kernel's launches against the count the passes imply, a stage
+  breakdown, median-of-3 ms beside encode_batch's.  The kernels line's
+  rows gain `sharded_search_launches`;
+- the C++ host helpers (sjpeg_tpu_torch.native, built by g++ in the build
+  phase): host_native (which version of each helper the search and a
+  shared-statistics encode ran, the build seconds, the main batch's scan
+  tails in C++ and in the NumPy twin, the node fit in C++ and in the
+  torch twin, the host stages that run them).
 
 One JSON line each.  Then the `kernels` line (each kernel's device
 microseconds a launch from a torch.profiler trace beside its CUDA-event
@@ -359,9 +372,13 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = kernels.build_all()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_lib = kernels.host_library()
+    host_build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", seconds=build_s, libraries=sorted(logs), ptxas=ptxas)
+    emit("build", seconds=build_s, libraries=sorted(logs), ptxas=ptxas,
+         host_library=host_lib.name, host_build_seconds=host_build_s)
     need(sorted(logs) == kernels.kernel_names(), "every kernel built")
 
     # ---- 3. kernel parity at full size ----------------------------------
@@ -536,6 +553,7 @@ def main() -> int:
         engine._finalize_scan_bytes(wn[i], int(tn[i])))
         for i in range(BATCH)])
     emit("breakdown", gpu=card, ms=stages, fetched_words=int(wn.size))
+    tail_inputs = (wn, tn, stages["host_tail"])
 
     # ---- kernels line ---------------------------------------------------
     used_words = int(((bits.long() + 31) // 32).sum())
@@ -580,7 +598,7 @@ def main() -> int:
     rows += tr_rows
     by_name.update((r["name"], r) for r in tr_rows)
     torch.cuda.empty_cache()
-    search_row, rate_launches = search_phases(card, rgb)
+    search_row, rate_launches, search_host = search_phases(card, rgb)
     by_name["trellis"]["search_per_image_rate_launches"] = rate_launches
     rows.append(search_row)
     torch.cuda.empty_cache()
@@ -591,10 +609,15 @@ def main() -> int:
     rows += auto_sharp_phases(card, rgb, logs)
     torch.cuda.empty_cache()
     sharded = sharded_phases(card, rgb)
+    torch.cuda.empty_cache()
+    sharded_search = sharded_search_phase(card, rgb)
     for row in rows:
         if row["name"] in sharded:
             row["sharded_launches"] = sharded[row["name"]]
+        if row["name"] in sharded_search:
+            row["sharded_search_launches"] = sharded_search[row["name"]]
     torch.cuda.empty_cache()
+    host_native_phase(card, rgb, host_build_s, tail_inputs, search_host)
     cli_phase()
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
@@ -1354,8 +1377,9 @@ def search_inputs(img: np.ndarray, mode: int, quals) -> tuple:
 def search_phases(card: str, rgb: np.ndarray):
     """The batched target-size search on the same batch: search_parity,
     search_path, search_cases, search_timing and search_breakdown; returns
-    the per-image sample_pack row and the trellis's [B, 2, 256]
-    rate-table launches in the method-7 search."""
+    the per-image sample_pack row, the trellis's [B, 2, 256] rate-table
+    launches in the method-7 search, and the host stages for host_native
+    (the search breakdown, the node fit in C++ and its torch twin)."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, engine_search, kernels
     from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quantize,
@@ -1551,6 +1575,13 @@ def search_phases(card: str, rgb: np.ndarray):
              nodes[0].reshape(-1, 128), axis=0).shape[0]),
          fetched_words=int(picked[0].size))
     need(out == jpegs, "the staged search gives the same bytes")
+    # the node fit's C++ version against its torch twin, same histograms
+    fit_ms = {"native": host_ms(srch.node_matrices, 3)}
+    with mock.patch.dict("os.environ", {"SJPEG_ADAPTIVE_IMPL": "torch"}):
+        fit_ms["torch_twin"] = host_ms(srch.node_matrices, 3)
+        twin_nodes = srch.node_matrices()
+    need(np.array_equal(twin_nodes[0], nodes[0]),
+         "the node fit's torch twin equals the C++ fit")
 
     # ---- kernel row -----------------------------------------------------
     tab = (torch.arange(n, device=dev) // (n // BATCH)) * 2 + group.long()
@@ -1570,7 +1601,8 @@ def search_phases(card: str, rgb: np.ndarray):
                                     if "blocks" not in k),
                      per_image_ms, plain_ms, sp_bytes, sp_ops,
                      shared_tables_ms=shared_ms, device_us=per_image_us)
-    return row, rate_launches
+    return row, rate_launches, {"search_breakdown_ms": stages,
+                                "node_fit_ms": fit_ms}
 
 
 def single_phases(card: str, rgb: np.ndarray, qp_long_err: int) -> list:
@@ -2348,6 +2380,171 @@ def sharded_phases(card: str, rgb: np.ndarray) -> dict:
     return {k: launches["m7_2x2"][k] or launches["auto_2x2"][k]
             for k in counted}
 
+
+
+def sharded_search_phase(card: str, rgb: np.ndarray) -> dict:
+    """The sharded target-size / target-PSNR search on the main batch
+    (meshes of the card, cuda:0 repeated): size with methods 4 and 7 and
+    PSNR with method 4 on (2, 2) (PSNR 35 too, whose high-quality final
+    pass outgrows the 4-bit-a-pixel stripe buckets of some images, which
+    are searched again alone), size with method 0 on (1, 4), each case's
+    bytes against engine.encode_batch on the card; the passes run, each
+    kernel's launches outside those images' own searches (on (2, 2) with
+    P passes: fdct 12, vlc_pack 4 (P + 1), stream_concat 6 (P + 1) ops,
+    merge_codesizes 2 (P + 1), trellis 4 (P + 1); a PSNR search packs in
+    its final pass only), a stage breakdown and median-of-3 host ms beside
+    encode_batch's.  Returns {kernel: launches} of the method-7 size
+    search."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, engine_search
+    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, stream_concat,
+                                     trellis, vlc_pack)
+    from sjpeg_tpu_torch.params import TARGET_SIZE
+    from sjpeg_tpu_torch.parallel import api
+    from sjpeg_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(DEVICE, 0)
+    counted = {"fdct": fdct.fdct_blocks, "trellis": trellis.trellis_quantize,
+               "merge_codesizes": merge_codesizes.optimal_tables,
+               "vlc_pack": vlc_pack.vlc_pack,
+               "stream_concat": stream_concat.stream_concat}
+    cases = {
+        "m4_size_2x2": (method4(C.YUV_420).set_target_size(
+            200_000, passes=8), (2, 2)),
+        "m7_size_2x2": (method7(C.YUV_420).set_target_size(
+            200_000, passes=6), (2, 2)),
+        "m4_psnr_2x2": (method4(C.YUV_420).set_target_psnr(
+            33.0, passes=8), (2, 2)),
+        "m4_psnr35_2x2": (method4(C.YUV_420).set_target_psnr(
+            35.0, passes=8), (2, 2)),
+        "m0_size_1x4": (method0(C.YUV_420).set_target_size(
+            200_000, passes=8), (1, 4)),
+    }
+    same, launches, passes_run, want_launches, ms = {}, {}, {}, {}, {}
+    alone = {}                # images searched alone, and their launches
+    real_passes = api._ShardedSearch.passes
+    real_alone = engine_search.search_alone
+
+    def spy(run):
+        real_passes(run)
+        passes_run[name] = run.passes_run
+
+    def spy_alone(*a, **k):
+        before = {key: f.launches for key, f in counted.items()}
+        out = real_alone(*a, **k)
+        rec = alone.setdefault(name, {"images": 0, "launches": dict.fromkeys(
+            counted, 0)})
+        rec["images"] += 1
+        for key, f in counted.items():
+            rec["launches"][key] += f.launches - before[key]
+        return out
+
+    for name, (p, (dp, sp)) in cases.items():
+        mesh = make_mesh(dp, sp, [dev] * (dp * sp))
+        want = engine.encode_batch(rgb, p, device=dev)
+        for f in counted.values():
+            f.launches = 0
+        with mock.patch.object(api._ShardedSearch, "passes", spy), \
+                mock.patch.object(engine_search, "search_alone", spy_alone):
+            got = api.encode_batch_sharded(rgb, p, mesh)
+        own = alone.get(name, {"launches": dict.fromkeys(counted, 0)})
+        launches[name] = {k: f.launches - own["launches"][k]
+                          for k, f in counted.items()}
+        same[name] = got == want
+        # packing passes: each size pass and the final pass
+        n = passes_run[name] + 1 if p.target_mode == TARGET_SIZE else 1
+        want_launches[name] = {
+            "fdct": 3 * dp * sp,
+            "trellis": dp * sp * n if name.startswith("m7") else 0,
+            "merge_codesizes": 0 if name.startswith("m0") else dp * n,
+            "vlc_pack": dp * sp * n, "stream_concat": dp * (sp + 1) * n}
+        ms[name] = {"encode_batch": host_ms(
+            lambda: engine.encode_batch(rgb, p, device=dev), 3),
+            "sharded": host_ms(
+            lambda: api.encode_batch_sharded(rgb, p, mesh), 3)}
+
+    # ---- a stage breakdown of the method-4 size search on (2, 2) ---------
+    p, (dp, sp) = cases["m4_size_2x2"]
+    run = api._ShardedSearch(rgb, p, make_mesh(dp, sp, [dev] * (dp * sp)),
+                             C.YUV_420, 4.0)
+    breakdown = {}
+    for st in run.stages():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st()
+        torch.cuda.synchronize()
+        breakdown[st.__name__] = (time.perf_counter() - t0) * 1e3
+    same["m4_size_2x2_staged"] = run.out == engine.encode_batch(
+        rgb, p, device=dev)
+    emit("sharded_search", gpu=card, byte_equal=same, passes_run=passes_run,
+         launches=launches, predicted_launches=want_launches,
+         searched_alone=alone, ms=ms, breakdown_ms=breakdown,
+         bucket_words=run.geo.bucket,
+         repeated_device=torch.cuda.device_count() == 1)
+    need(all(same.values()), "every sharded search byte-equal to "
+         "engine.encode_batch on the card")
+    need(launches == want_launches, "the sharded search's launches: per "
+         "pass a stripe's vlc_pack and stream_concat, a dp row's table "
+         "build and stitch")
+    return launches["m7_size_2x2"]
+
+
+def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
+                      tail_inputs, search_host: dict) -> None:
+    """The port's C++ host helpers (sjpeg_tpu_torch.native): which version
+    of each helper a method-4 size search and a shared-statistics encode
+    call (the C++ one, never a twin), the g++ build seconds, the main
+    batch's scan tails in C++ and in the NumPy twin (same words, same
+    bytes), and the host stages that run them: the method-0 breakdown's
+    host_tail, the search breakdown (its node fit, in C++ and in its
+    torch twin, and its host_tail)."""
+    from sjpeg_tpu_torch import adaptive, bitio, engine, huffman, native
+    from sjpeg_tpu_torch import constants as C
+
+    dev = torch.device(DEVICE)
+    wn, tn, breakdown_tail = tail_inputs
+    # each C++ helper and its twin
+    names = {"words_to_scan": (bitio, "words_to_scan"),
+             "huffman_codesizes": (huffman, "_codesizes_python"),
+             "analyse_histo_nodes": (adaptive, "_analyse_histo_nodes_torch")}
+    calls = {kind: dict.fromkeys(names, 0) for kind in ("native", "twin")}
+
+    def counter(kind, key, fn):
+        def wrapped(*a, **k):
+            calls[kind][key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for key, (twin_mod, twin_name) in names.items():
+            stack.enter_context(mock.patch.object(
+                native, key, counter("native", key, getattr(native, key))))
+            stack.enter_context(mock.patch.object(
+                twin_mod, twin_name, counter("twin", key,
+                                             getattr(twin_mod, twin_name))))
+        engine.encode_batch(rgb, method4(C.YUV_420).set_target_size(
+            200_000, passes=8), device=dev)
+        engine.encode_batch(rgb, method4(C.YUV_420), share_statistics=True,
+                            device=dev)
+    impl = ("native" if all(calls["native"].values())
+            and not any(calls["twin"].values()) else "twin")
+    scans = {}
+    tail_ms = {}
+    for kind, fn in (("native", native.words_to_scan),
+                     ("numpy_twin", bitio.words_to_scan)):
+        t0 = time.perf_counter()
+        scans[kind] = [fn(wn[i][:(int(tn[i]) + 31) // 32], int(tn[i]))
+                       for i in range(len(tn))]
+        tail_ms[kind] = (time.perf_counter() - t0) * 1e3
+    emit("host_native", gpu=card, impl=impl, calls=calls,
+         build_seconds=build_s, library=str(native._LIB._name).rsplit(
+             "/", 1)[-1],
+         scan_tail_ms=tail_ms, scan_bytes=sum(len(b) for b in
+                                              scans["native"]),
+         breakdown_host_tail_ms=breakdown_tail, **search_host)
+    need(impl == "native", "every host helper ran its C++ version")
+    need(scans["native"] == scans["numpy_twin"],
+         "the C++ scan tail equals the NumPy twin on the main batch")
 
 
 def cli_phase() -> None:

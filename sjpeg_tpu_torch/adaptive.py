@@ -21,16 +21,21 @@ tiny per-image problem that releases the GIL, so the engine threads it
 over the images of a batch.
 
 `analyse_histo_nodes` is the search's form: one fit for every (image,
-candidate matrix) pair of a bisection tree, on the host in float64 torch,
-bit-identical to `analyse_histo` per pair.
+candidate matrix) pair of a bisection tree, bit-identical to
+`analyse_histo` per pair: the threaded C++ fit (native.analyse_histo_nodes)
+by default, its float64 torch twin with SJPEG_ADAPTIVE_IMPL=torch (the JAX
+package's switch; the port has no NumPy node twin, so any other value runs
+the C++ fit).
 """
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from . import constants as C
+from . import native
 from .spec import calc_log2
 
 _FLT_MAX = float(np.finfo(np.float32).max)
@@ -176,7 +181,11 @@ def analyse_histo_nodes(histos: np.ndarray, quants: np.ndarray,
         if uq.shape[0] < K:
             r = analyse_histo_nodes(histos, uq, min_quant, qdelta_max)
             return np.ascontiguousarray(r[:, inv.reshape(-1)])
-    return _analyse_histo_nodes_torch(histos, quants, min_quant, qdelta_max)
+    if os.environ.get("SJPEG_ADAPTIVE_IMPL", "").strip().lower() == "torch":
+        return _analyse_histo_nodes_torch(histos, quants, min_quant,
+                                          qdelta_max)
+    return native.analyse_histo_nodes(histos, quants, min_quant, qdelta_max,
+                                      C.HISTO_WEIGHT)
 
 
 def _analyse_histo_nodes_torch(histos, quants, min_quant,

@@ -7,7 +7,7 @@ bytes.  Method 0 (K.3 tables, no adaptive quantization), fused:
   DC predictor chain                      ops/fdct.fdct_dc, ops/vlc
   fDCT + quantize + VLC + per-block pack  ops/sample_pack  [CUDA kernel 1]
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
-  fetch, stuffing, markers                bitio, headers   [host]
+  fetch, stuffing, markers                native, headers  [host]
 
 Methods 1, 3, 4 and 7 (two-pass optimal Huffman and/or adaptive
 quantization, method 7 with trellis quantization; per-image statistics, or
@@ -27,7 +27,7 @@ JAX engine stages them off the relay (`_encode_batch_optimized`):
                                           ops/merge_codesizes [CUDA kernel 4]
   Huffman lookup + per-block pack         ops/vlc_pack     [CUDA kernel 3]
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
-  fetch, stuffing, markers                bitio, headers   [host]
+  fetch, stuffing, markers                native, headers  [host]
 
 With passes > 1 and a target size or PSNR, every method runs the batched
 search of engine_search, which packs its passes through sample_pack with
@@ -79,9 +79,8 @@ import numpy as np
 import torch
 
 from . import constants as C
-from . import headers, pipeline, riskiness, sharp_yuv, spec, state
+from . import headers, native, pipeline, riskiness, sharp_yuv, spec, state
 from .adaptive import analyse_histo
-from .bitio import words_to_scan
 from .huffman import (build_code_lut, k3_default_tables,
                       optimal_tables_from_freqs, trellis_cost_lens)
 from .ops import colorspace, fdct, huffman_device, pack, quant_pack, \
@@ -782,8 +781,9 @@ def fetch_streams_batch(words: torch.Tensor, totals_np) -> np.ndarray:
 
 
 def _finalize_scan_bytes(words: np.ndarray, total_bits: int) -> bytes:
-    """Host word stream -> stuffed entropy-coded byte segment."""
-    return words_to_scan(words[: (total_bits + 31) // 32], total_bits)
+    """Host word stream -> stuffed entropy-coded byte segment (the '1'
+    padding and the 0xFF stuffing in one C++ pass)."""
+    return native.words_to_scan(words[: (total_bits + 31) // 32], total_bits)
 
 
 def _scan_bytes(words: torch.Tensor, totals: torch.Tensor) -> bytes:

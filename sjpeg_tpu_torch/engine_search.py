@@ -38,8 +38,10 @@ It takes one of three routes, as the JAX engine does:
 
 An image whose stream outgrows the bucket, or whose device decision
 disagrees with the float hook, is searched again alone through route 3
-with a bucket of 64 words a block, which cannot overflow.  On the CPU the
-same routes run with the kernels' plain versions.
+with a bucket of 64 words a block, which cannot overflow
+(`search_alone`).  On the CPU the same routes run with the kernels' plain
+versions.  The sharded search (parallel/api._ShardedSearch) runs route 3
+over a mesh with `_Search`'s hooks, matrices and bookkeeping.
 
 `encode_search_one` is the single-image search of engine.encode_rgb (and
 the gray and planar entry points): one pass at a time with the hook on the
@@ -109,16 +111,20 @@ def _derive_quant_arrays(q_u8, q_bias: int):
     return iq.to(torch.int32), ib.to(torch.int32)
 
 
-def _batch_qerr(coeffs, iq3, ib3, q3, n_images: int):
+def _batch_qerr(coeffs, iq3, ib3, q3, n_images: int, valid=None):
     """Per-image exact squared quantization error (the PSNR search's
     value): per-component [N, 64] coefficients (image-major) against
-    [B, 2, 64] per-image iquant, bias and quant -> [B] int64."""
+    [B, 2, 64] per-image iquant, bias and quant -> [B] int64.  `valid`:
+    optional per-component [N] bool masks (or None entries); blocks with
+    False count no error (the padding blocks of a ragged stripe)."""
     err = 0
     for c, coef in enumerate(coeffs):
         g = 0 if c == 0 else 1
         rows = [t[:, None, g, :].to(torch.int64) for t in (iq3, ib3, q3)]
-        err = err + quantize.quantize_error(
-            coef.reshape(n_images, -1, 64), *rows).sum(dim=1)
+        e = quantize.quantize_error(coef.reshape(n_images, -1, 64), *rows)
+        if valid is not None and valid[c] is not None:
+            e = torch.where(valid[c].reshape(n_images, -1), e, 0)
+        err = err + e.sum(dim=1)
     return err
 
 
@@ -299,6 +305,37 @@ def _stage_search_loop_psnr(coeffs, quants_nodes, err_thr: int,
     return trace
 
 
+def _evolve_rate_tables(lens, lens_prev, acl, searching):
+    """Method 7's per-image [B, 2, 256] rate tables after a size pass, as
+    the reference's persistent ac_codes_ arrays evolve (src/dichotomy.cc:
+    83-85, 144): the images still searching (`searching`, [B] bools) keep
+    their entry tables in lens_prev, and their present symbols take the
+    pass's new code lengths (acl: its [B, 2, 256] LUTs); the others keep
+    both.  -> (lens, lens_prev)."""
+    upd = torch.tensor(searching, device=lens.device)[:, None, None]
+    lens_prev = torch.where(upd, lens, lens_prev)
+    new_lens = acl & 0xFF
+    return torch.where(upd & (new_lens > 0), new_lens, lens), lens_prev
+
+
+def _final_rate_tables(lens, lens_prev, last_best):
+    """The final pass's rate tables: an image whose best pass was its last
+    reuses that pass's entry tables (the reference keeps the run-levels it
+    quantized before the pass's table update)."""
+    last = torch.tensor(last_best, device=lens.device)[:, None, None]
+    return torch.where(last, lens_prev, lens)
+
+
+def search_alone(one, src_kind: str, yuv_mode: int, w: int, h: int,
+                 param: EncoderParam) -> bytes:
+    """One image (a batch of one on its device) searched alone, pass by
+    pass, with a bucket of 64 words a block, which cannot overflow: the
+    port's rule for an image whose stream outgrew its bucket (the JAX
+    engine runs its host search there)."""
+    return _Search(one, src_kind, yuv_mode, w, h, param, math.inf,
+                   per_pass=True).run()[0]
+
+
 class _Search:
     """One batched search: its configuration, its per-image hooks and the
     steps of its three routes (see the module docstring)."""
@@ -335,6 +372,12 @@ class _Search:
             max(4096, w * h * bits_per_pixel_budget / 32,
                 (param.target_value * 2 * 8) / 32 + 4096)))
         self.prep = self.histos = None
+        # pass-by-pass bookkeeping (route 3, and the sharded search's)
+        self.best = [0.0] * self.b
+        self.opt = [None] * self.b
+        self.done = [False] * self.b
+        self.overflow = [False] * self.b
+        self.last_best = [False] * self.b
 
     # ---- shared steps ---------------------------------------------------
 
@@ -385,6 +428,12 @@ class _Search:
         return engine._tuned_qms(qms, self.histos[:, i], self.param,
                                  self.n_groups)
 
+    def pass_matrices(self):
+        """Every image's matrices for the next pass, its lambda fit
+        threaded over the images (the NumPy fit releases the GIL)."""
+        with ThreadPoolExecutor(max_workers=min(8, self.b)) as pool:
+            return list(pool.map(self.make_qms, range(self.b)))
+
     def quant_arrays(self, per_qms, keys=("iquant", "bias")):
         """Per-image finalized matrices -> [B, 2, 64] int32 tensors."""
         return state.arrays_to_device(
@@ -392,14 +441,13 @@ class _Search:
               for k in keys), device=self.device)
 
     def fallback(self, i: int) -> bytes:
-        """Image i searched again alone, pass by pass, with a bucket of 64
-        words a block (the JAX engine runs its host search here)."""
+        """Image i searched again alone (`search_alone`)."""
         if self.per_pass:             # its bucket is already the worst case
             raise RuntimeError("a worst-case bucket overflowed")
         one = (self.src[i:i + 1] if self.src_kind == "rgb"
                else tuple(p[i:i + 1] for p in self.src))
-        return _Search(one, self.src_kind, self.yuv_mode, self.w, self.h,
-                       self.param, math.inf, per_pass=True).run()[0]
+        return search_alone(one, self.src_kind, self.yuv_mode, self.w,
+                            self.h, self.param)
 
     def assemble(self, qms, tables, words_np, total_bits: int):
         scan = engine._finalize_scan_bytes(words_np, total_bits)
@@ -532,28 +580,19 @@ class _Search:
     def pass_by_pass(self):
         """The hooks on the host, one batched evaluation a pass -> (best
         matrices [B] or None, the trellis's final rate tables or None)."""
-        p, b, flags = self.param, self.b, self.flags
+        b, flags = self.b, self.flags
         coeffs, nb = self.prep["coeffs"], self.nb_blocks
         trellis = flags["use_trellis"]
         optimize = flags["optimize_size"]
         if trellis:
-            # per-image rate tables evolve like the reference's persistent
-            # ac_codes_ arrays (src/dichotomy.cc:83-85, 144); lens_prev holds
-            # each image's last pass's entry tables, which a best last pass
-            # reuses
             lens = state.arrays_to_device(np.broadcast_to(
                 trellis_cost_lens(), (b, 2, 256)), device=self.device)[0]
-            lens_prev, last_best = lens, [False] * b
+            lens_prev = lens
         if not optimize:
             dcl_def, acl_def = state.arrays_to_device(
                 *engine._host_luts(self.defaults), device=self.device)
-        best = [0.0] * b
-        opt = [None] * b
-        done = [False] * b
-        overflow = [False] * b
         for pc in range(self.passes):
-            with ThreadPoolExecutor(max_workers=min(8, b)) as pool:
-                per_qms = list(pool.map(self.make_qms, range(b)))
+            per_qms = self.pass_matrices()
             iq3, ib3 = self.quant_arrays(per_qms)
             if self.for_size:
                 if trellis:
@@ -564,14 +603,8 @@ class _Search:
                         huffman_device.luts_and_desc_from_freqs(
                             freqs[0].reshape(b, 2, -1),
                             freqs[1].reshape(b, 2, -1), self.n_groups)
-                    # present symbols take their new lengths; images whose
-                    # own search has ended keep their tables
-                    upd = torch.tensor([not (done[i] or overflow[i])
-                                        for i in range(b)],
-                                       device=self.device)[:, None, None]
-                    lens_prev = torch.where(upd, lens, lens_prev)
-                    new_lens = acl & 0xFF
-                    lens = torch.where(upd & (new_lens > 0), new_lens, lens)
+                    lens, lens_prev = _evolve_rate_tables(
+                        lens, lens_prev, acl, self.searching())
                     words, totals = engine._stage_batch_pack(
                         vlc_state, dcl, acl, b, self.bucket)
                     ev = _stage_eval_size_nbs(words, totals, nbs)
@@ -584,47 +617,58 @@ class _Search:
                     words, totals = engine._stage_batch_pack(
                         vlc_state, dcl_def, acl_def, b, self.bucket)
                     ev = _stage_eval_size_batch(words, totals)
-                results = self.size_results(ev.cpu().numpy(), overflow)
+                results = self.size_results(ev.cpu().numpy())
             else:
                 (q3,) = self.quant_arrays(per_qms, ("quant",))
                 err = _batch_qerr(coeffs, iq3, ib3, q3, b).cpu().numpy()
                 results = [get_psnr(int(e), 64 * self.n_blocks_img)
                            for e in err]
-            all_done = True
-            for i in range(b):
-                if done[i] or overflow[i]:
-                    continue
-                hook = self.hooks[i]
-                hook.pass_count = pc
-                is_best = pc == 0 or abs(results[i] - hook.target) < best[i]
-                if trellis:
-                    last_best[i] = is_best
-                if is_best:
-                    opt[i] = [per_qms[i][g]["quant"].copy() for g in range(2)]
-                    best[i] = abs(results[i] - hook.target)
-                if hook.update(results[i]):
-                    done[i] = True
-                else:
-                    all_done = False
-            if all_done:
+            if self.record(pc, results, per_qms):
                 break
-        opt = [None if overflow[i] else opt[i] for i in range(b)]
+        opt = [None if self.overflow[i] else self.opt[i] for i in range(b)]
         if not trellis:
             return opt, None
         if not self.for_size:
             return opt, lens
-        # a best last pass reuses its entry tables (the reference keeps the
-        # run-levels it quantized before that pass's table update)
-        last = torch.tensor(last_best, device=self.device)[:, None, None]
-        return opt, torch.where(last, lens_prev, lens)
+        return opt, _final_rate_tables(lens, lens_prev, self.last_best)
 
-    def size_results(self, ev, overflow):
+    def searching(self) -> list:
+        """Whether each image's search goes on: neither done nor past its
+        bucket."""
+        return [not (d or o) for d, o in zip(self.done, self.overflow)]
+
+    def record(self, pc: int, results, per_qms) -> bool:
+        """Pass pc's results into each searching image's hook: its best
+        pass so far (opt, best, last_best) and whether it is done.
+        Returns whether every image is done (or past its bucket)."""
+        all_done = True
+        for i in range(self.b):
+            if self.done[i] or self.overflow[i]:
+                continue
+            hook = self.hooks[i]
+            hook.pass_count = pc
+            is_best = pc == 0 or abs(results[i] - hook.target) < self.best[i]
+            self.last_best[i] = is_best
+            if is_best:
+                self.opt[i] = [per_qms[i][g]["quant"].copy()
+                               for g in range(2)]
+                self.best[i] = abs(results[i] - hook.target)
+            if hook.update(results[i]):
+                self.done[i] = True
+            else:
+                all_done = False
+        return all_done
+
+    def size_results(self, ev, fits=None):
         """[2 (+ 4), B] fetched evaluation -> each image's float32 size in
-        bytes (None, and overflow set, past the bucket)."""
+        bytes; None, and its overflow set, where it does not fit (`fits`,
+        [B] bools; by default its total within the bucket)."""
+        if fits is None:
+            fits = ev[0] <= self.bucket * 32
         results = []
         for i in range(self.b):
-            if ev[0, i] > self.bucket * 32:
-                overflow[i] = True
+            if not fits[i]:
+                self.overflow[i] = True
                 results.append(None)
                 continue
             hdr = (header_size_bits(self.param, self.layout.nb_comps,

@@ -4,8 +4,10 @@ The K.3 default tables (method 0 and the DC/AC tables of method 3), the
 canonical LUT expansion, and the optimal-table construction
 (`build_optimal_table`, the reference's BuildOptimalTable,
 src/enc.cc:1311-1487) that the shared-statistics path runs on the batch's
-frequencies.  The per-image path builds the same tables on the card
-(ops/huffman_device); the tests hold the two against each other.
+frequencies, its merge loop in C++ (native.huffman_codesizes; the Python
+loop, `_codesizes_python`, is its parity twin).  The per-image path
+builds the same tables on the card (ops/huffman_device); the tests hold
+the two against each other.
 
 Optimal-table semantics, as in the reference:
 - a fake lowest-frequency symbol occupies the all-ones code, which is then
@@ -21,6 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from . import constants as C
+from . import native
 
 
 @dataclass
@@ -67,19 +70,10 @@ def build_code_lut(table: HuffmanTable, lut_size: int = 256) -> np.ndarray:
     return lut
 
 
-def build_optimal_table(freq: np.ndarray, size: int) -> HuffmanTable:
-    """Build a length-limited Huffman table from symbol frequencies.
-
-    `freq` is an integer array of at least `size` entries; `size` is 12
-    for DC tables and 256 for AC tables.  Returns the (bits, syms)
-    description ready for DHT emission and `build_code_lut`.
-    """
-    assert size <= 256
-    MAX_BITS = 32
-    MAX_CODE_SIZE = 16
-
-    nb_syms = int((np.asarray(freq[:size]) > 0).sum())
-
+def _codesizes_python(freq: np.ndarray, size: int) -> list:
+    """The Huffman merge of `build_optimal_table` in Python: code lengths
+    of `freq[:size]` and of the fake symbol at index `size`.  The parity
+    twin of native.huffman_codesizes, which the table build runs."""
     # Pack (freq, index) so sorting breaks frequency ties by index,
     # matching the reference's uint64 keys.
     keys = [(int(freq[i]) << 9) | i for i in range(size) if freq[i] > 0]
@@ -111,6 +105,23 @@ def build_optimal_table(freq: np.ndarray, size: int) -> HuffmanTable:
             k -= 1
         keys[k] = merged
         del keys[nb]
+    return codesizes
+
+
+def build_optimal_table(freq: np.ndarray, size: int) -> HuffmanTable:
+    """Build a length-limited Huffman table from symbol frequencies.
+
+    `freq` is an integer array of at least `size` entries; `size` is 12
+    for DC tables and 256 for AC tables.  Returns the (bits, syms)
+    description ready for DHT emission and `build_code_lut`.
+    """
+    assert size <= 256
+    MAX_BITS = 32
+    MAX_CODE_SIZE = 16
+
+    nb_syms = int((np.asarray(freq[:size]) > 0).sum())
+
+    codesizes = native.huffman_codesizes(freq, size)
 
     # Histogram of code lengths (clamping ultra-rare symbols at MAX_BITS).
     cs = np.minimum(np.asarray(codesizes, dtype=np.int64), MAX_BITS)

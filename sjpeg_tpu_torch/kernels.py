@@ -4,6 +4,9 @@ Each `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, `_build/lib<name>-<hash>.so`, where the hash covers the sources
 and flags, so an edited source builds anew.  The first use of any kernel
 builds every missing library, one nvcc per source, all started together.
+The host helpers, `csrc/native_host.cc` (the `.cc` suffix keeps it away
+from nvcc), build the same way with g++ into `_build/libsjpeg_host-<hash>.so`
+(`host_library`, loaded by the `native` module).
 Nothing builds while the package is imported.  A module lock serialises
 the first builds and loads of concurrent threads (the serving wrappers
 launch from several), and temporary names carry the pid and the thread.
@@ -21,6 +24,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+HOST_SOURCE = CSRC / "native_host.cc"
+GXX = "g++"
+# no -march: the node fit's float64 bits must not depend on the host's ISA
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
+             "-ffp-contract=off"]
 
 _functions = {}
 _lock = threading.RLock()
@@ -59,8 +67,7 @@ def build_all() -> dict:
         jobs = []
         for name in todo:
             target = library_path(name)
-            tmp = target.with_name(f"{target.name}.{os.getpid()}."
-                                  f"{threading.get_ident()}.tmp")
+            tmp = _tmp_path(target)
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             jobs.append((name, target, tmp, subprocess.Popen(
@@ -77,6 +84,40 @@ def build_all() -> dict:
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return logs
+
+
+def _tmp_path(target: Path) -> Path:
+    return target.with_name(f"{target.name}.{os.getpid()}."
+                            f"{threading.get_ident()}.tmp")
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha1(" ".join(GXX_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f"libsjpeg_host-{h.hexdigest()[:12]}.so"
+
+
+def host_library() -> Path:
+    """The host helpers' library, built with g++ if missing.  Raises with
+    g++'s output on failure."""
+    with _lock:
+        target = host_library_path()
+        if target.exists():
+            return target
+        gxx = shutil.which(GXX)
+        if gxx is None:
+            raise RuntimeError(f"{GXX} not found: the port's host helpers "
+                               "are built at first use and need it")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = _tmp_path(target)
+        proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
+                               str(HOST_SOURCE)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"host helper build failed: {GXX} exited "
+                               f"{proc.returncode}\n{proc.stdout}")
+        os.replace(tmp, target)        # atomic: concurrent builds agree
+        return target
 
 
 def function(lib_name: str, fn_name: str, argtypes):

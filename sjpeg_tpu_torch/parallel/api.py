@@ -32,11 +32,24 @@ image 0, whose outputs are dropped and whose statistics never count.
 
 Sharp YUV converts per dp row (the sharp_yuv kernel on the row's images)
 and encodes the planes' stripes; a mixed YUV_AUTO batch runs as one
-sharded sub-batch per mode.  Delegated to the one-device engine on the
-mesh's first device, as sjpeg_tpu.parallel.api delegates: sharp images
-with a side <= 4, sharp searches, YUV_AUTO under several processes, and
-custom search hooks.  The sharded search (passes > 1 with a target) is
-not ported yet and raises.
+sharded sub-batch per mode.
+
+A target-size / target-PSNR search (passes > 1 with a target) runs the
+same stages pass by pass (`_ShardedSearch`): the coefficients once, then
+per pass each image's matrices from its hook on the host, and
+
+  size: quantize (DC chains across stripes) + tables on the lead device +
+        VLC + pack + stitch, the stuffing counted on the stitched words
+        -> one fetch a dp row (totals, stuffing, largest stripe, nb_syms)
+  PSNR: the masked squared error a stripe, summed in int64 on the lead
+        device -> one fetch a dp row
+
+then a final pass at each image's best matrices through the single-shot
+stages.  Each process's loop ends when its own images' hooks are done: no
+collective a pass.  Delegated to the one-device engine on the mesh's first
+device, as sjpeg_tpu.parallel.api delegates: sharp images with a side <=
+4, sharp searches, YUV_AUTO under several processes, and custom search
+hooks.
 """
 
 import dataclasses
@@ -47,7 +60,9 @@ import torch
 import torch.distributed as dist
 
 from .. import constants as C
-from .. import engine, pipeline, sharp_yuv, state
+from .. import engine, engine_search, pipeline, sharp_yuv, state
+from ..dichotomy import get_psnr
+from ..huffman import trellis_cost_lens
 from ..ops import fdct, huffman_device, pack, quantize
 from ..params import EncoderParam, method_flags
 from .mesh import Mesh, default_mesh
@@ -66,7 +81,8 @@ def encode_batch_sharded(rgbs, param: Optional[EncoderParam] = None,
     `rgbs` is this process's LOCAL images, the same count and shape in
     every process, and the list holds their JPEGs, in order; image data
     never crosses processes, and with share_statistics the shared tables
-    span each process's local batch."""
+    span each process's local batch.  With passes > 1 and a target, each
+    image runs its own search (share_statistics does not apply)."""
     param = param or EncoderParam()
     mesh = mesh or default_mesh()
     b, h, w = rgbs.shape[:3]
@@ -99,13 +115,9 @@ def encode_batch_sharded(rgbs, param: Optional[EncoderParam] = None,
             or (sharp and (search or min(w, h) <= sharp_yuv.MIN_DIMENSION))):
         return engine.encode_batch(rgbs, param, bits_per_pixel_budget,
                                    share_statistics, device=lead)
-    if search:
-        raise NotImplementedError(
-            "encode_batch_sharded: the sharded target-size / target-PSNR "
-            "search is not ported yet (ROADMAP A9b); engine.encode_batch "
-            "runs it on one device")
-    run = _Sharded(rgbs, param, mesh, yuv_mode, bits_per_pixel_budget,
-                   share_statistics)
+    run = (_ShardedSearch(rgbs, param, mesh, yuv_mode, bits_per_pixel_budget)
+           if search else _Sharded(rgbs, param, mesh, yuv_mode,
+                                   bits_per_pixel_budget, share_statistics))
     for stage in run.stages():
         stage()
     return run.out
@@ -144,7 +156,11 @@ def _psum(parts, device) -> torch.Tensor:
 class _Geometry:
     """Stripe geometry: whole MCU rows a stripe (`rows`), the real MCU rows
     of each stripe (`vrows`), the stripe-local index of a partial last MCU
-    row (`crow`), and the words of each stripe's stream (`bucket`)."""
+    row (`crow`), and the words of each stripe's stream (`bucket`): the
+    JAX sharded API's formula (a search's `target_value` adds room for its
+    early high-quality passes), rounded up to 64 words for the stitch.
+    The bucket only moves which images take the overflow fallback, never
+    their bytes."""
     layout: pipeline.ComponentLayout
     sp: int
     rows: int
@@ -156,7 +172,7 @@ class _Geometry:
 
     @classmethod
     def of(cls, yuv_mode: int, w: int, h: int, sp: int,
-           bits_per_pixel_budget: float):
+           bits_per_pixel_budget: float, target_value=None):
         layout = pipeline.component_layout(yuv_mode, w, h)
         mcu_h = layout.block_h
         rows = -(-layout.mb_h // sp)
@@ -166,8 +182,11 @@ class _Geometry:
         crow = [(layout.mb_h - 1) - s * rows if sub_h else -1
                 for s in range(sp)]
         per_img_blocks = layout.mb_w * rows * sp * sum(layout.nb_blocks)
+        room = [1024, w * h * bits_per_pixel_budget / 32 / sp]
+        if target_value is not None:
+            room.append(target_value * 2 * 8 / 32 / sp + 4096)
         bucket = int(min(per_img_blocks // sp * pack.WORDS_PER_BLOCK,
-                         max(1024, w * h * bits_per_pixel_budget / 32 / sp)))
+                         max(room)))
         bucket = -(-bucket // pack.WORDS_PER_BLOCK) * pack.WORDS_PER_BLOCK
         return cls(layout, sp, rows, rows * mcu_h, sub_h, vrows, crow, bucket)
 
@@ -425,3 +444,171 @@ class _Sharded:
                    torch.cat([p[1] for p in parts]),
                    torch.cat([p[2] for p in parts]))
         return engine._repack_image(state_i, *self.luts[r], j)
+
+
+class _ShardedSearch(_Sharded):
+    """One sharded target-size / target-PSNR search, stage by stage
+    (`stages()`); the JPEGs land in `out`.  The images' dichotomies are an
+    engine_search._Search (`dich`: the hooks, each pass's matrices and
+    lambda fits, the size results and the best-pass bookkeeping) over the
+    real images; padding images take image 0's matrices and count
+    nowhere.  The coefficients stay on their stripes' devices across the
+    passes (`coef_all`); the size passes, the final pass and the tail run
+    `_Sharded`'s stages."""
+
+    def __init__(self, rgbs, param: EncoderParam, mesh: Mesh, yuv_mode: int,
+                 bits_per_pixel_budget: float):
+        super().__init__(rgbs, param, mesh, yuv_mode, bits_per_pixel_budget,
+                         False)
+        self.dich = engine_search._Search(
+            self.src[:self.b_real], "rgb", self.yuv_mode, self.w, self.h,
+            param, bits_per_pixel_budget)
+        self.geo = _Geometry.of(
+            self.yuv_mode, self.w, self.h, mesh.sp, bits_per_pixel_budget,
+            param.target_value if self.dich.for_size else 0)
+        self.passes_run = 0
+
+    def stages(self):
+        return [self.coeffs, self.fit, self.passes, self.final,
+                self.quantize, self.tables, self.pack, self.stitch,
+                self.fetch, self.tail]
+
+    # ---- the histograms, one fetch a dp row -------------------------------
+    def fit(self):
+        """The hooks' lambda fits read each image's histograms every pass;
+        padding images never count."""
+        if self.flags["use_adaptive_quant"]:
+            self.dich.histos = torch.cat(
+                [t.cpu() for t in self.histos], dim=1)[:, :self.b_real] \
+                .numpy().astype(np.int64)
+            del self.histos
+        self.coef_all = self.coef
+
+    def _upload(self, per_qms, lens=None):
+        """The real images' finalized matrices (padding images take image
+        0's) -> each dp row's iquant, bias and quant on its lead device,
+        and for the trellis its [b_l, 2, 256] rate tables."""
+        per_qms = per_qms + per_qms[:1] * (
+            self.b_l * self.mesh.dp_local - self.b_real)
+        host = [np.stack([[q[k] for q in qms] for qms in per_qms]).astype(
+            np.int32) for k in ("iquant", "bias", "quant")]
+        self.row_arrays = [
+            [*state.arrays_to_device(*(a[self._images(r)] for a in host),
+                                     device=self.mesh.lead(r)),
+             *([lens[r]] if lens is not None else [])]
+            for r in range(self.mesh.dp_local)]
+
+    def _row_flags(self, flags, r: int) -> list:
+        """Dp row r's slice of per-real-image flags, False for padding."""
+        sl = self._images(r)
+        return (flags[sl] + [False] * self.b_l)[:self.b_l]
+
+    def _cost_lens(self) -> list:
+        """The trellis's starting rate tables (the K.3 AC code lengths),
+        [b_l, 2, 256] on each dp row's lead device."""
+        return [state.arrays_to_device(np.broadcast_to(
+            trellis_cost_lens(), (self.b_l, 2, 256)),
+            device=self.mesh.lead(r))[0] for r in range(self.mesh.dp_local)]
+
+    # ---- the passes ---------------------------------------------------------
+    def passes(self):
+        d = self.dich
+        if self.flags["use_trellis"] and d.for_size:
+            self.lens = self._cost_lens()
+            self.lens_prev = list(self.lens)
+        for pc in range(d.passes):
+            per_qms = d.pass_matrices()
+            results = (self._size_pass(per_qms) if d.for_size
+                       else self._psnr_pass(per_qms))
+            self.passes_run += 1
+            if d.record(pc, results, per_qms):
+                break
+
+    def _size_pass(self, per_qms) -> list:
+        """Every image's exact JPEG size at per_qms: the single-shot
+        stages from quantize to the stitch, then the stuffing of the
+        stitched words; one fetch a dp row."""
+        d, trellis = self.dich, self.flags["use_trellis"]
+        self._upload(per_qms, self.lens if trellis else None)
+        self.coef = self.coef_all
+        self.quantize()
+        self.tables()
+        if trellis:
+            searching = d.searching()
+            for r, (_, acl) in enumerate(self.luts):
+                self.lens[r], self.lens_prev[r] = \
+                    engine_search._evolve_rate_tables(
+                        self.lens[r], self.lens_prev[r], acl,
+                        self._row_flags(searching, r))
+        self.pack()
+        self.stitch()
+        evs = []
+        for r, (iw, tt) in enumerate(self.stitched):
+            rows = [tt[:, -1].to(torch.int64),
+                    engine_search._stage_count_stuffing_batch(iw, tt[:, -1])]
+            if self.desc is not None:                  # nb_syms, 4 tables
+                rows += list(self.desc[r][:, :4].to(torch.int64).t())
+            rows.append(tt[:, :-1].max(dim=1).values.to(torch.int64))
+            evs.append(torch.stack(rows).cpu())
+        del self.stitched
+        ev = torch.cat(evs, dim=1)[:, :self.b_real].numpy()
+        return d.size_results(ev[:-1], ev[-1] <= self.geo.bucket * 32)
+
+    def _psnr_pass(self, per_qms) -> list:
+        """Every image's PSNR at per_qms: the exact squared error of each
+        stripe's real blocks, summed over sp in int64 on the lead device;
+        one fetch a dp row."""
+        self._upload(per_qms)
+        return [get_psnr(int(e), 64 * self.dich.n_blocks_img)
+                for e in self.stripe_errors()[:self.b_real]]
+
+    def stripe_errors(self) -> np.ndarray:
+        """[b_l * dp_local] int64 squared error of each image at the
+        uploaded matrices, over its stripes' real blocks."""
+        mb_w, b_l = self.geo.layout.mb_w, self.b_l
+        errs = []
+        for r, row in enumerate(self.mesh.devices):
+            parts = []
+            for s, dev in enumerate(row):
+                iq, ib, qq = (a.to(dev) for a in self.row_arrays[r][:3])
+                valid = [self.geo.valid(s, mb_w * nb, b_l, dev)
+                         for nb in self.nb_blocks]
+                parts.append(engine_search._batch_qerr(
+                    self.coef_all[r][s], iq, ib, qq, b_l, valid))
+            errs.append(_psum(parts, row[0]).cpu())
+        return torch.cat(errs).numpy()
+
+    # ---- the final pass at each image's best matrices ---------------------
+    def final(self):
+        """Each image's best matrices (an image past its bucket stands in
+        with the param's, unused), and for the trellis its final rate
+        tables, ready for the single-shot stages."""
+        d = self.dich
+        base = engine._quant_matrices(self.param)
+        self.per_qms = [base if over or opt is None else d.finalize(opt)
+                        for opt, over in zip(d.opt, d.overflow)]
+        lens = None
+        if self.flags["use_trellis"] and d.for_size:
+            lens = [engine_search._final_rate_tables(
+                self.lens[r], self.lens_prev[r],
+                self._row_flags(d.last_best, r))
+                for r in range(self.mesh.dp_local)]
+        elif self.flags["use_trellis"]:
+            lens = self._cost_lens()
+        self._upload(self.per_qms, lens)
+        self.coef = self.coef_all
+
+    # ---- host tail: stuffing, markers; overflowing images searched alone --
+    def tail(self):
+        d = self.dich
+        self.out = [self._fallback(i) if d.overflow[i] or self.overflow[i]
+                    else d.assemble(self.per_qms[i], self.host_tables[i],
+                                    self.words[i], int(self.totals[i]))
+                    for i in range(self.b_real)]
+
+    def _fallback(self, i: int) -> bytes:
+        """Image i, whose stripe outgrew its bucket in some pass, searched
+        again alone on its dp row's lead device."""
+        one = self.src[i:i + 1].to(self.mesh.lead(i // self.b_l))
+        return engine_search.search_alone(one, "rgb", self.yuv_mode, self.w,
+                                          self.h, self.param)

@@ -12,6 +12,7 @@ import ctypes
 import functools
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -609,12 +610,45 @@ def _imports(path: Path):
             yield node.module or ""
 
 
+# run in a fresh interpreter: a search (the node fit), shared tables (the
+# host Huffman merge) and every scan tail, then what the process loaded
+_PORT_RUN = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from sjpeg_tpu_torch import engine
+from sjpeg_tpu_torch.params import EncoderParam
+rng = np.random.RandomState(0)
+rgb = rng.randint(0, 256, (2, 24, 40, 3)).astype(np.uint8)
+p = EncoderParam(yuv_mode=1)
+p.set_target_size(400, passes=3)
+engine.encode_batch(rgb, p, device="cpu")
+engine.encode_batch(rgb, EncoderParam(yuv_mode=1), share_statistics=True,
+                    device="cpu")
+print(sorted({m.split(".")[0] for m in sys.modules}))
+print(open("/proc/self/maps").read())
+"""
+
+
 def test_port_imports_neither_jax_nor_sjpeg_tpu():
+    """Statically, no module of the port (nor chip_smoke.py) imports JAX or
+    sjpeg_tpu; run, the port loads neither, nor the JAX package's native
+    library (native/libsjpeg_native.so), but its own host helpers."""
     files = sorted((REPO / "sjpeg_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "sjpeg_tpu")]
+    bad += [(f.name, "libsjpeg_native") for f in files
+            if "libsjpeg_native" in f.read_text()]
     assert len(files) > 10 and not bad, bad
+    run = subprocess.run([sys.executable, "-c", _PORT_RUN], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    modules, maps = run.stdout.split("\n", 1)
+    assert not {"jax", "jaxlib", "sjpeg_tpu"} & set(eval(modules)), modules
+    assert "libsjpeg_native" not in maps
+    assert "libsjpeg_host-" in maps
 
 
 @pytest.mark.parametrize("kw", [

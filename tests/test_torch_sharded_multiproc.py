@@ -4,7 +4,8 @@ file:// store (no TCP port).  The processes are spawned once for the file
 (torch.multiprocessing) and import only the port; each encodes its own
 local images, and its JPEGs must equal sjpeg_tpu.engine.encode_batch of
 the global batch (rank 0's images, then rank 1's), byte for byte, for
-method 0, method 4 and a ragged local batch (3 images on dp = 4)."""
+method 0, method 4, a ragged local batch (3 images on dp = 4) and a size
+search whose processes stop after different numbers of passes."""
 
 import pickle
 import time
@@ -46,3 +47,6 @@ def test_two_processes_match_jax(spawned, name, record_property):
     for g, w in zip(got, want):
         assert g[:2] == b"\xff\xd8" and g[-2:] == b"\xff\xd9"
         assert g == w
+    if name.startswith("search"):
+        # one search a process, each loop ending on its own images alone
+        assert [o["passes"] for o in out] == [[1], [4]]

@@ -3,8 +3,8 @@ bit on seeded inputs: the DC chain across stripes (against
 sjpeg_tpu.parallel.shard under shard_map over the virtual CPU devices), the
 dynamic-row AverageExtraLuma flatten, the masked histograms and symbol
 frequencies, the stitch (pieces through stream_concat_plain), the
-single-stripe encode; then the stages' intermediates, a mixed AUTO batch,
-SHARP, and the search's NotImplementedError."""
+single-stripe encode; then the stages' intermediates, a mixed AUTO batch
+and SHARP.  The sharded search is in test_torch_sharded_search.py."""
 
 import numpy as np
 import pytest
@@ -197,15 +197,6 @@ def test_sharded_auto_and_sharp_match_jax():
     sharp = dict(yuv_mode=C.YUV_SHARP)
     _same(api.encode_batch_sharded(x[1:], EncoderParam(**sharp), mesh),
           jengine.encode_batch(x[1:], JaxParam(**sharp)))
-
-
-def test_sharded_search_raises_naming_a9b():
-    """The sharded search is the next slice: it raises, naming its
-    ROADMAP item, and does not delegate."""
-    p = EncoderParam(yuv_mode=C.YUV_420)
-    p.set_target_size(900, passes=3)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        api.encode_batch_sharded(_imgs(2, 40), p, _mesh(2, 1))
 
 
 @pytest.mark.parametrize("trellis", [False, True])
