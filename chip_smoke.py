@@ -93,7 +93,26 @@ against the plain PyTorch versions on the same card:
   phase): host_native (which version of each helper the search and a
   shared-statistics encode ran, the build seconds, the main batch's scan
   tails in C++ and in the NumPy twin, the node fit in C++ and in the
-  torch twin, the host stages that run them).
+  torch twin, the host stages that run them);
+- the profiling utilities (sjpeg_tpu_torch.utils.profiling): profiling
+  (after host_native) traces one encode_batch of the main batch with
+  method 0 and with method 4 through device_trace, inside a StageTimer
+  stage after priming the trace with small copies and kernels (late in a
+  long process the profiler loses a session's first device records), and
+  reads the exported Chrome trace: the device's busy time
+  (the union of kernel, memcpy and memset intervals), the idle share of
+  the call's host-clock window, the top device ops, the longest idle gaps
+  and the CPU op each began in (merge_spans, busy_us, idle_gaps, op_at,
+  trace_summary: plain functions the CPU tests import); the path's
+  kernels and the batch's upload must be in the trace; StageTimer's
+  report through log_jsonl and back;
+- the inspector (sjpeg_tpu_torch.inspect_tool): inspector (before cli)
+  holds risk_map on the card against device="cpu" and block_riskiness's
+  loop, times it on the 12-MP photo, and holds the quality sweep's
+  encodes with the interactive loop's settings against device="cpu",
+  counting each kernel's launches over the card's encodes (the kernels
+  line's rows gain `inspector_launches`).  PIL is absent on the card's
+  machine, so the decode-based views are held by tier-1 only.
 
 One JSON line each.  Then the `kernels` line (each kernel's device
 microseconds a launch from a torch.profiler trace beside its CUDA-event
@@ -238,6 +257,35 @@ def plain_tables(jobs):
     from sjpeg_tpu_torch.ops import huffman_device
     return [huffman_device.optimal_code_luts_plain(f, size, lut, True)
             for f, size, lut in jobs]
+
+
+def counted_wrappers() -> dict:
+    """{kernel: its wrapper}, each wrapper counting its own launches in
+    `.launches`."""
+    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quant_pack,
+                                     sample_pack, stream_concat, trellis,
+                                     vlc_pack)
+    from sjpeg_tpu_torch.ops import riskiness as risk_dev
+    from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
+    return {"sharp_yuv": sharp_ops.sharp_iterate,
+            "risk_stats": risk_dev.risk_stats,
+            "sample_pack": sample_pack.sample_pack,
+            "fdct": fdct.fdct_blocks,
+            "merge_codesizes": merge_codesizes.optimal_tables,
+            "vlc_pack": vlc_pack.vlc_pack,
+            "quant_pack": quant_pack.quant_pack,
+            "trellis": trellis.trellis_quantize,
+            "stream_concat": stream_concat.stream_concat}
+
+
+def run_counted(fn):
+    """fn() with every kernel's count set to 0 just before it -> (its
+    result, {kernel: launches in that call})."""
+    counted = counted_wrappers()
+    for k in counted.values():
+        k.launches = 0
+    out = fn()
+    return out, {k: f.launches for k, f in counted.items()}
 
 
 def max_err(pairs) -> int:
@@ -618,6 +666,13 @@ def main() -> int:
             row["sharded_search_launches"] = sharded_search[row["name"]]
     torch.cuda.empty_cache()
     host_native_phase(card, rgb, host_build_s, tail_inputs, search_host)
+    torch.cuda.empty_cache()
+    profiling_phase(card, rgb)
+    torch.cuda.empty_cache()
+    inspector = inspector_phase(card)
+    for row in rows:
+        if row["name"] in inspector:
+            row["inspector_launches"] = inspector[row["name"]]
     cli_phase()
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
@@ -1915,29 +1970,11 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, logs: dict) -> list:
     single_auto; returns the sharp_yuv and risk_stats kernel rows."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, riskiness, sharp_yuv
-    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quant_pack,
-                                     sample_pack, stream_concat, trellis,
-                                     vlc_pack)
     from sjpeg_tpu_torch.ops import riskiness as risk_dev
     from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
     from sjpeg_tpu_torch.params import EncoderParam
 
     dev = torch.device(DEVICE)
-    counted = {"sharp_yuv": sharp_ops.sharp_iterate,
-               "risk_stats": risk_dev.risk_stats,
-               "sample_pack": sample_pack.sample_pack,
-               "fdct": fdct.fdct_blocks,
-               "merge_codesizes": merge_codesizes.optimal_tables,
-               "vlc_pack": vlc_pack.vlc_pack,
-               "quant_pack": quant_pack.quant_pack,
-               "trellis": trellis.trellis_quantize,
-               "stream_concat": stream_concat.stream_concat}
-
-    def run_counted(fn):
-        for k in counted.values():
-            k.launches = 0
-        out = fn()
-        return out, {k: f.launches for k, f in counted.items()}
 
     # ---- auto_batch: every mode four times, default param and method 0 --
     batch = four_mode_batch(WIDTH, BATCH // 4)
@@ -2545,6 +2582,243 @@ def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
     need(impl == "native", "every host helper ran its C++ version")
     need(scans["native"] == scans["numpy_twin"],
          "the C++ scan tail equals the NumPy twin on the main batch")
+
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_WORK = "host (no torch op)"
+NAME_CHARS = 120                # a device op's name as printed
+# after this script's earlier phases, the first device records of a trace
+# session go missing (the batch's upload and its four table copies, on an
+# H100 with torch 2.11): each traced window is preceded by this many small
+# copies and kernels for the profiler to lose
+PRIME_RECORDS = 256
+
+
+def prime_trace(dev) -> None:
+    """PRIME_RECORDS small host-to-device copies and kernels, then a
+    synchronise."""
+    host = torch.zeros(256, dtype=torch.int32)
+    for _ in range(PRIME_RECORDS):
+        host.to(dev).add_(1)
+    torch.cuda.synchronize()
+
+
+def merge_spans(spans) -> list:
+    """[(start, end)] -> their union as sorted, disjoint (start, end)
+    pairs; empty spans are dropped."""
+    out = []
+    for start, end in sorted(sp for sp in spans if sp[1] > sp[0]):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return [tuple(sp) for sp in out]
+
+
+def busy_us(spans, lo: float, hi: float) -> float:
+    """Length of the union of `spans` inside [lo, hi]."""
+    return sum(max(0.0, min(end, hi) - max(start, lo))
+               for start, end in merge_spans(spans))
+
+
+def idle_gaps(spans, lo: float, hi: float) -> list:
+    """The (start, end) stretches of [lo, hi] that no span covers, in
+    order: before the first span and after the last included."""
+    gaps, t = [], lo
+    for start, end in merge_spans(spans):
+        if end <= t:
+            continue
+        if start >= hi:
+            break
+        if start > t:
+            gaps.append((t, start))
+        t = end
+    if t < hi:
+        gaps.append((t, hi))
+    return gaps
+
+
+def op_at(t: float, ops) -> str:
+    """Name of the innermost CPU op of [(start, end, name)] running at t
+    (the latest start, then the shortest), or HOST_WORK when none is:
+    NumPy or C++ work outside torch."""
+    best = None
+    for start, end, name in ops:
+        if start <= t < end and (best is None or (start, best[1]) >
+                                 (best[0], end)):
+            best = (start, end, name)
+    return best[2] if best else HOST_WORK
+
+
+def trace_summary(events, lo: float, hi: float, top: int = 8,
+                  n_gaps: int = 5) -> dict:
+    """A Chrome trace's events inside the window [lo, hi] (µs): the
+    device's busy µs (the union of kernel, memcpy and memset intervals),
+    the `top` device ops by µs with their launches, the `n_gaps` longest
+    idle gaps, each with the CPU op running when it began, and every
+    device op's name."""
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in DEVICE_CATEGORIES
+           and e["ts"] < hi and e["ts"] + e["dur"] > lo]
+    ops = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+           if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
+    by_name = {}
+    for e in dev:
+        acc = by_name.setdefault(e["name"], [0.0, 0])
+        acc[0] += e["dur"]
+        acc[1] += 1
+    top_ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    gaps = sorted(idle_gaps(spans, lo, hi), key=lambda g: g[0] - g[1])
+    return {"busy_us": busy_us(spans, lo, hi),
+            "top_device_ops": [{"name": k[:NAME_CHARS], "us": v[0],
+                                "launches": v[1]} for k, v in top_ops],
+            "longest_gaps": [{"us": end - start, "at_us": start - lo,
+                              "began_in": op_at(start, ops)}
+                             for start, end in gaps[:n_gaps]],
+            "device_ops": sorted(by_name)}
+
+
+def profiling_phase(card: str, rgb: np.ndarray) -> None:
+    """One traced encode_batch of the main batch with method 0 and with
+    method 4 (utils/profiling.device_trace, after warm calls and
+    prime_trace, inside a StageTimer stage that synchronises before it
+    ends): the device's busy µs from the exported Chrome trace, the window
+    on the host clock, the
+    idle share, the top device ops and the longest idle gaps; StageTimer's
+    report, written by log_jsonl and read back."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, kernels
+    from sjpeg_tpu_torch.utils.profiling import (StageTimer, device_trace,
+                                                 log_jsonl)
+
+    dev = torch.device(DEVICE)
+    timer = StageTimer()
+    pixels = BATCH * HEIGHT * WIDTH
+    runs = {"m0": (method0(C.YUV_420), ("sample_pack", "stream_concat")),
+            "m4": (method4(C.YUV_420), ("fdct", "merge_codesizes",
+                                        "vlc_pack", "stream_concat"))}
+    for name, (param, sources) in runs.items():
+        untraced_ms = host_ms(lambda p=param: engine.encode_batch(
+            rgb, p, device=dev), 3)
+        logdir = kernels.BUILD_DIR / f"trace_{name}"
+        shutil.rmtree(logdir, ignore_errors=True)
+        stage = f"encode_batch_{name}"
+        with device_trace(str(logdir)):
+            prime_trace(dev)
+            with timer.stage(stage, pixels), \
+                    torch.profiler.record_function(stage):
+                jpegs = engine.encode_batch(rgb, param, device=dev)
+                torch.cuda.synchronize()
+        files = sorted(logdir.glob("*.pt.trace.json"))
+        need(len(files) == 1, f"device_trace wrote one trace ({name})")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        marks = [e for e in events if e.get("name") == stage
+                 and e.get("cat") == "user_annotation"]
+        need(len(marks) == 1, f"the traced call's window ({name})")
+        lo, hi = marks[0]["ts"], marks[0]["ts"] + marks[0]["dur"]
+        summary = trace_summary(events, lo, hi)
+        window_us = timer.times[stage] * 1e6
+        share = 1.0 - summary["busy_us"] / window_us
+        missing = [src for src in sources
+                   if not any(nm in op for nm in global_names(src)
+                              for op in summary["device_ops"])]
+        emit("profiling", gpu=card, method=name, images=len(jpegs),
+             trace=f"{logdir.name}/{files[0].name}",
+             trace_bytes=files[0].stat().st_size, window_us=window_us,
+             trace_window_us=hi - lo, busy_us=summary["busy_us"],
+             idle_share=share, untraced_ms=untraced_ms,
+             top_device_ops=summary["top_device_ops"],
+             longest_gaps=summary["longest_gaps"],
+             device_op_kinds=len(summary["device_ops"]),
+             path_kernels_missing=missing)
+        need(0.0 <= share <= 1.0, f"the idle share is in [0, 1] ({name})")
+        need(not missing, f"the {name} path's kernels are in the trace")
+        need(any(op.startswith("Memcpy HtoD") for op in
+                 summary["device_ops"]),
+             f"the batch's upload is in the trace's window ({name})")
+    report = timer.report()
+    log = kernels.BUILD_DIR / "profiling.jsonl"
+    log.unlink(missing_ok=True)
+    log_jsonl(str(log), {"phase": "profiling", "stages": report})
+    back = [json.loads(ln) for ln in log.read_text().splitlines()]
+    emit("profiling_report", stage_timer=report, log_jsonl=back)
+    need(len(back) == 1 and back[0]["stages"] == report
+         and isinstance(back[0]["ts"], float),
+         "log_jsonl's record reads back")
+
+
+def inspector_phase(card: str) -> dict:
+    """The inspector (sjpeg_tpu_torch.inspect_tool) on the card: risk_map
+    on the card, at device="cpu" and through block_riskiness's loop on a
+    256 x 256 crop of the 12-MP photo and on four 256 x 256 images of
+    each AUTO mode; on the card against the CPU at 1000 x 750; its time
+    on the photo; the quality sweep's encodes (qualities 20, 50, 90 at
+    1000 x 750, an image AUTO converts to sharp 4:2:0) with the
+    interactive loop's settings after the keys named (the default param,
+    AUTO and method 4; `t`; `l`; `o` `a`, method 0 from the sharp planes,
+    through quant_pack; `1` `o` `a`, method 0 from RGB, through
+    sample_pack) on the card against device="cpu", with the kernels'
+    launches counted over the card's encodes.  No PIL: the decode-based
+    views (PSNR, error_map) are held by tier-1 only.  Returns
+    {kernel: launches}."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import inspect_tool, riskiness
+
+    dev = torch.device(DEVICE)
+    photo = make_rgb(1, 3024, 4032, SEED + 600)[0]
+    crops = {"photo_crop_256": photo[:256, :256].copy()}
+    crops.update((f"auto_mode_{i}", im)
+                 for i, im in enumerate(four_mode_batch(256, 1)))
+    exact = {}
+    for name, im in crops.items():
+        card_map = inspect_tool.risk_map(im, dev)
+        cpu_map = inspect_tool.risk_map(im, device="cpu")
+        loop = np.array([[riskiness.block_riskiness(
+            im[8 * j:8 * j + 8, 8 * i:8 * i + 8])[0] for i in range(32)]
+            for j in range(32)], np.float32)
+        exact[name] = (card_map.tobytes() == cpu_map.tobytes()
+                       == loop.tobytes())
+    img = make_rgb(1, 750, 1000, SEED + 1300)[0]
+    exact["card_vs_cpu_1000x750"] = (
+        inspect_tool.risk_map(img, dev).tobytes()
+        == inspect_tool.risk_map(img, device="cpu").tobytes())
+    risk_ms = host_ms(lambda: inspect_tool.risk_map(photo, dev), 3)
+    distinct = int(np.unique(inspect_tool.risk_map(photo, dev)).size)
+
+    quals = (20, 50, 90)
+    settings = {"default": {}, "t": {"use_trellis": True},
+                "l": {"limit": True},
+                "o_a": {"huffman_compress": False,
+                        "adaptive_quantization": False},
+                "1_o_a": {"yuv_mode": C.YUV_420, "huffman_compress": False,
+                          "adaptive_quantization": False}}
+
+    def sweeps(device):
+        return {name: inspect_tool.sweep_jpegs(
+            img, quals, lambda q, kw=kw: inspect_tool.session_param(
+                quality=q, **kw), device)
+            for name, kw in settings.items()}
+
+    card_jpegs, launches = run_counted(lambda: sweeps(dev))
+    cpu_jpegs = sweeps("cpu")
+    same = {k: card_jpegs[k] == cpu_jpegs[k] for k in settings}
+    emit("inspector", gpu=card, risk_map_exact=exact,
+         risk_map_photo_12mp_ms=risk_ms, risk_map_photo_distinct=distinct,
+         sweep_qualities=quals, sweep_width=1000, sweep_height=750,
+         sweep_bytes={k: [len(j) for j in v] for k, v in card_jpegs.items()},
+         sweep_cuda_equals_cpu=same, launches=launches,
+         decode_views="PSNR and error_map decode with PIL, which this "
+         "machine lacks: tier-1 holds them against sjpeg_tpu")
+    need(all(exact.values()), "risk_map on the card equals the CPU and "
+         "block_riskiness's loop")
+    need(all(same.values()), "the inspector's encodes on the card equal "
+         "device='cpu'")
+    # single-image encodes build their optimal tables on the host
+    # (engine._stage_one_pass), so merge_codesizes is not on this path
+    need(all(v > 0 for k, v in launches.items() if k != "merge_codesizes"),
+         "the inspector's encodes launched every kernel of their path")
+    return launches
 
 
 def cli_phase() -> None:

@@ -15,8 +15,9 @@ MCU-row stripes of each image).  With passes > 1 and a target size or PSNR
 own search, driven by `EncoderParam.search_hook` when one is set (a
 `SearchHook` subclass).  Entry points live in `sjpeg_tpu_torch.engine`;
 each runs on "cuda" unless the caller passes device="cpu" (the
-`host_encode_*` names run the plain path on the CPU).  The command-line
-tool is `python -m sjpeg_tpu_torch.cli`.
+`host_encode_*` names, sjpeg_tpu_torch.host_encoder's, run the plain path
+on the CPU).  The command-line tool is `python -m sjpeg_tpu_torch.cli`;
+the encode inspector `python -m sjpeg_tpu_torch.inspect_tool`.
 """
 
 from .constants import (SJPEG_TPU_VERSION, YUV_400, YUV_420, YUV_444,
@@ -24,6 +25,9 @@ from .constants import (SJPEG_TPU_VERSION, YUV_400, YUV_420, YUV_444,
 from .engine import (encode_batch, encode_batch_gray, encode_batch_nv12,
                      encode_batch_nv21, encode_batch_yuv, encode_gray,
                      encode_many, encode_pipelined, encode_rgb, encode_yuv)
+from .host_encoder import encode_gray as host_encode_gray
+from .host_encoder import encode_rgb as host_encode_rgb
+from .host_encoder import encode_yuv as host_encode_yuv
 from .parallel.api import encode_batch_sharded
 from .params import (TARGET_NONE, TARGET_PSNR, TARGET_SIZE, EncoderParam,
                      SearchHook)
@@ -32,22 +36,6 @@ from .tools import dimensions, estimate_quality, find_quantizer, quant_matrix
 
 def version() -> str:
     return ".".join(map(str, SJPEG_TPU_VERSION))
-
-
-def host_encode_rgb(rgb, param=None) -> bytes:
-    """Encode one RGB uint8 image [H, W, 3] on the CPU (the kernels' plain
-    versions): sjpeg_tpu.host_encode_rgb's bytes."""
-    return encode_rgb(rgb, param, device="cpu")
-
-
-def host_encode_gray(gray, param=None) -> bytes:
-    """Encode one grayscale uint8 image [H, W] on the CPU."""
-    return encode_gray(gray, param, device="cpu")
-
-
-def host_encode_yuv(y, u, v, is_420: bool, param=None) -> bytes:
-    """Encode one planar YUV image on the CPU."""
-    return encode_yuv(y, u, v, is_420, param, device="cpu")
 
 
 def encode(rgb, param=None, backend: str = "auto", *, device=None) -> bytes:

@@ -46,8 +46,12 @@ searches) packs straight from the coefficients:
   stream concatenation                    ops/stream_concat [CUDA kernel 2]
 
 passes > 1 runs the single-image search (engine_search.encode_search_one,
-the hook on the host).  `encode_pipelined` and `encode_many` are the
-serving wrappers over `encode_batch`.
+the hook on the host).  `_encode_coeffs` runs these stages from an image's
+coefficients, which host_encoder.encode_components computes from given
+blocks.  `encode_core` is `encode_batch_core` for one image with its
+worst-case bucket, and `fetch_stream` copies its used words to the host.
+`encode_pipelined` and `encode_many` are the serving wrappers over
+`encode_batch`.
 
 From RGB, YUV_AUTO picks each image's mode from its riskiness
 (ops/riskiness.risk_stats on the uploaded batch, one fetch of three values
@@ -384,6 +388,12 @@ def _stage_batch_coeffs(src, src_kind: str, yuv_mode: int, width: int,
         blocks = colorspace.planes_to_blocks(src, yuv_mode, width, height)
     else:
         blocks = colorspace.rgb_to_blocks(src, yuv_mode, width, height)
+    return _block_coeffs(blocks, with_histo, n_images)
+
+
+def _block_coeffs(blocks, with_histo: bool, n_images: int = 1):
+    """Per-component [N_c, 64] int32 sample blocks -> their fDCT
+    coefficients (+ the histograms of `_coeff_histos`)."""
     coeffs = [fdct.fdct_blocks(b.contiguous()) for b in blocks]
     return coeffs, _coeff_histos(coeffs, n_images) if with_histo else None
 
@@ -772,6 +782,33 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
                                         per_img))
 
 
+def encode_core(src, iquant, ibias, dc_luts, ac_luts, *, yuv_mode: int,
+                width: int, height: int, nb_blocks, src_kind: str = "rgb"):
+    """The one-image form of `encode_batch_core`: RGB [H, W, 3] uint8 (or a
+    (y, u, v) / (y,) tuple of [H, W] planes with src_kind="planes") ->
+    ([bucket] int32 words holding uint32 stream bits, int32 exact total
+    bits), with the bucket at the image's worst case of 64 words a block,
+    so nothing is dropped."""
+    if src_kind == "planes":
+        src = tuple(p[None] for p in src)
+    else:
+        src = src[None]
+    layout = pipeline.component_layout(yuv_mode, width, height)
+    words, totals = encode_batch_core(
+        src, iquant, ibias, dc_luts, ac_luts, yuv_mode=yuv_mode,
+        width=width, height=height, nb_blocks=nb_blocks,
+        bucket=_blocks_per_image(layout) * pack.WORDS_PER_BLOCK,
+        src_kind=src_kind, n_images=1)
+    return words[0], totals[0]
+
+
+def fetch_stream(words: torch.Tensor, total_bits: int) -> np.ndarray:
+    """Copy to the host only the meaningful prefix of one image's stream:
+    [bucket] int32 device words -> [ceil(total_bits / 32)] uint32."""
+    n_words = (int(total_bits) + 31) // 32
+    return words[:n_words].contiguous().cpu().numpy().view(np.uint32)
+
+
 def fetch_streams_batch(words: torch.Tensor, totals_np) -> np.ndarray:
     """Copy to the host only the word columns that some image uses:
     [B, bucket] int32 device words -> [B, ncols] uint32."""
@@ -838,9 +875,15 @@ def _stage_coeffs(src, src_kind: str, yuv_mode: int, width: int,
     [2, 64, bins] int64 array."""
     coeffs, histos = _stage_batch_coeffs(src, src_kind, yuv_mode, width,
                                          height, with_histo, 1)
-    if histos is not None:
-        histos = torch.stack(histos).cpu().numpy().astype(np.int64)
-    return coeffs, histos
+    return coeffs, _fetch_histos(histos)
+
+
+def _fetch_histos(histos):
+    """One image's (luma, chroma) histograms -> one fetch, a [2, 64, bins]
+    int64 array (None stays None)."""
+    if histos is None:
+        return None
+    return torch.stack(histos).cpu().numpy().astype(np.int64)
 
 
 def _stage_pack(vlc_state, dc_luts, ac_luts):
@@ -892,14 +935,25 @@ def _stage_one_pass(coeffs, qms, flags, nb_blocks, n_groups: int, lt_lens):
 def _encode_blocks_device(src, src_kind: str, yuv_mode: int, w: int, h: int,
                           param: EncoderParam) -> bytes:
     """The staged one-image encode (method 0 from planes, methods 1, 3, 4
-    and 7); passes > 1 runs the single-image search, whether or not a
-    target is set, as the JAX engine's `_encode_blocks_device` does."""
+    and 7) of a source on its device: `_encode_coeffs` over its
+    coefficients."""
     flags = method_flags(param.method)
-    layout = pipeline.component_layout(yuv_mode, w, h)
-    nb_blocks = tuple(layout.nb_blocks)
-    n_groups = 2 if layout.nb_comps > 1 else 1
     coeffs, histos = _stage_coeffs(src, src_kind, yuv_mode, w, h,
                                    flags["use_adaptive_quant"])
+    return _encode_coeffs(coeffs, histos,
+                          pipeline.component_layout(yuv_mode, w, h), param)
+
+
+def _encode_coeffs(coeffs, histos, layout, param: EncoderParam) -> bytes:
+    """One image's per-component coefficients (and, with adaptive
+    quantization, its fetched [2, 64, bins] histograms) -> JPEG: one pass
+    (`_stage_one_pass`: quant_pack for methods 0 and 3, vlc_pack after the
+    quantize or the trellis for 1, 4 and 7); passes > 1 runs the
+    single-image search, whether or not a target is set, as the JAX
+    engine's `_encode_blocks_device` does."""
+    flags = method_flags(param.method)
+    nb_blocks = tuple(layout.nb_blocks)
+    n_groups = 2 if layout.nb_comps > 1 else 1
     if param.passes > 1:
         from .engine_search import encode_search_one
         return encode_search_one(coeffs, histos, layout, param)

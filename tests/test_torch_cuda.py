@@ -721,3 +721,67 @@ def test_stitch_matches_plain_on_gpu():
             np.int32)).cuda(), b, s * bucket)
     for g, e in zip(got, want):
         assert torch.equal(g, e)
+
+
+@pytest.mark.cuda
+def test_risk_map_on_gpu_matches_cpu():
+    """The inspector's batched risk map on the card == the CPU's, bit for
+    bit, on sizes that are not multiples of 8 and on a photo-sized
+    image."""
+    _need_cuda()
+    from sjpeg_tpu_torch import inspect_tool
+    rng = np.random.RandomState(24)
+    yy, xx = np.mgrid[0:757, 0:1003]
+    img = np.clip(np.stack([128 + 100 * np.sin(xx / 7.0), yy % 256,
+                            (xx + yy) % 256], -1)
+                  + rng.randint(-6, 7, (757, 1003, 3)), 0, 255).astype(
+        np.uint8)
+    for rgb in (img, img[:37, :53], img[:7]):
+        got = inspect_tool.risk_map(rgb)
+        want = inspect_tool.risk_map(rgb, device="cpu")
+        assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
+def test_device_trace_records_the_method0_kernels(tmp_path):
+    """device_trace on the card: its Chrome trace holds the method-0
+    path's kernels (sample_pack, stream_concat's two) and its copies."""
+    _need_cuda()
+    import json
+    from chip_smoke import global_names
+    from sjpeg_tpu_torch.utils.profiling import device_trace
+    rgb = np.random.RandomState(25).randint(0, 256, (2, 64, 72, 3)).astype(
+        np.uint8)
+    param = EncoderParam(huffman_compress=False, adaptive_quantization=False,
+                         yuv_mode=C.YUV_420)
+    engine.encode_batch(rgb, param)
+    with device_trace(str(tmp_path)):
+        engine.encode_batch(rgb, param)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    for source in ("sample_pack", "stream_concat"):
+        assert any(nm in k for nm in global_names(source) for k in kernels)
+    assert any(e.get("cat") == "gpu_memcpy" for e in events)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", [
+    {}, {"use_trellis": True}, {"limit": True},
+    {"yuv_mode": C.YUV_420, "huffman_compress": False,
+     "adaptive_quantization": False},
+    {"yuv_mode": C.YUV_SHARP, "huffman_compress": False}])
+def test_inspector_encodes_on_gpu_match_cpu(settings):
+    """The inspector's encodes with the interactive loop's settings (the
+    default AUTO method 4, `t`, `l`, method 0, sharp method 3) on the card
+    == device="cpu"."""
+    _need_cuda()
+    from sjpeg_tpu_torch import inspect_tool
+    rgb = np.random.RandomState(26).randint(0, 256, (75, 100, 3)).astype(
+        np.uint8)
+
+    def make(q):
+        return inspect_tool.session_param(quality=q, **settings)
+
+    assert (inspect_tool.sweep_jpegs(rgb, (20, 90), make)
+            == inspect_tool.sweep_jpegs(rgb, (20, 90), make, "cpu"))
