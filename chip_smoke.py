@@ -25,11 +25,15 @@ against the plain PyTorch versions on the same card:
   m4_breakdown;
 - method 7 (method 4 with trellis quantization), through trellis,
   merge_codesizes, vlc_pack and stream_concat.  Phases: tr_parity (the
-  trellis kernel with per-image and shared matrices and per-image rate
-  tables, and on rows sorted by search work; the table kernel on the
+  trellis op: a work pass, class starts, a ranking and the search; with
+  per-image and shared matrices and per-image rate tables; on 48 images
+  of 512 blocks, 512 of 48, all-zero blocks and half-zeroed rows; its
+  ranking, class histograms, starts and totals read back against a
+  stable heaviest-first sort; the table kernel on the
   trellis's frequencies), tr_path, tr_cases (shared
   statistics, 4:4:4, 4:0:0, 1000 x 750, NV12, q40, q90, an overflow
-  re-pack, GPU vs CPU path), tr_timing, tr_breakdown;
+  re-pack, GPU vs CPU path), tr_timing (the op's four launches, the whole
+  op, all-zero blocks, each kernel's device time), tr_breakdown;
 - the batched target-size search (method 4, set_target_size(200_000,
   passes=8)), through sample_pack with per-image tables, stream_concat
   and merge_codesizes (one table build) once a pass.  Phases: search_parity (the per-image
@@ -351,13 +355,12 @@ def global_names(source: str) -> list:
         (kernels.CSRC / f"{source}.cu").read_text())
 
 
-def kernel_us(fn, source: str, calls: int = 5, trace=None, tries: int = 3):
-    """Device microseconds of one launch of each kernel of csrc/<source>.cu
-    that fn runs, summed over those kernels: the mean over the launches
-    that torch.profiler recorded in `calls` calls (or first in a given
-    device_kernels trace), which may be fewer than the calls made.  A trace
-    that recorded no launch of the source is taken again, up to `tries`
-    traces of fn; after that the result is None, never 0."""
+def source_trace(fn, source: str, calls: int = 5, trace=None,
+                 tries: int = 3):
+    """A device_kernels trace of fn (first the given one) that recorded a
+    launch of a kernel of csrc/<source>.cu, with those launches' device
+    microseconds, one launch each: a trace that recorded none is taken
+    again, up to `tries` traces of fn; after that (None, [])."""
     names = global_names(source)
     for _ in range(tries):
         if trace is None:
@@ -367,10 +370,41 @@ def kernel_us(fn, source: str, calls: int = 5, trace=None, tries: int = 3):
         hits = [v["us"] / v["launches"] for k, v in trace.items()
                 if v["launches"] and any(nm in k for nm in names)]
         if hits:
-            return sum(hits)
+            return trace, hits
         trace = None
-    print(f"kernel_us: no {source} launch recorded in {tries} traces",
+    print(f"source_trace: no {source} launch recorded in {tries} traces",
           flush=True)
+    return None, []
+
+
+def kernel_us(fn, source: str, calls: int = 5, trace=None, tries: int = 3):
+    """Device microseconds of one launch of each kernel of csrc/<source>.cu
+    that fn runs, summed over those kernels: the mean over the launches
+    that torch.profiler recorded in `calls` calls (or first in a given
+    device_kernels trace), which may be fewer than the calls made; from
+    source_trace, so None, never 0, when no trace recorded a launch."""
+    _, hits = source_trace(fn, source, calls, trace, tries)
+    return sum(hits) if hits else None
+
+
+def op_us(fn, source: str, calls: int = 5, trace=None, tries: int = 3):
+    """Device microseconds of one call of fn, an op that launches each of
+    its kernels and memsets once (a zero fill, then csrc/<source>.cu's
+    kernel), summed over them: each one's time a launch, as kernel_us
+    takes it, from a device_kernels trace (first the given one) that
+    recorded a launch of the source, so that a trace that lost some calls'
+    records still gives a call's time.  A trace that recorded no launch of
+    the source, or something launched more than once a call, is taken
+    again, up to `tries` traces of fn; after that the result is None."""
+    names = global_names(source)
+    for _ in range(tries):
+        if trace is None:
+            trace = device_kernels(fn, calls)
+        if (any(any(nm in k for nm in names) for k in trace)
+                and all(0 < v["launches"] <= 1 for v in trace.values())):
+            return sum(v["us"] / v["launches"] for v in trace.values())
+        trace = None
+    print(f"op_us: no {source} op recorded in {tries} traces", flush=True)
     return None
 
 
@@ -558,9 +592,10 @@ def main() -> int:
     sc_op_ms = event_ms(stream_concat_op, 20)
     # the kernels that one op launches, from torch.profiler's trace
     sc_names = global_names("stream_concat")
-    sc_trace = device_kernels(stream_concat_op)
-    sc_kernel_launches = sum(v["launches"] for k, v in sc_trace.items()
-                             if any(nm in k for nm in sc_names))
+    sc_trace, _ = source_trace(stream_concat_op, "stream_concat", calls=1)
+    sc_kernel_launches = (sum(v["launches"] for k, v in sc_trace.items()
+                              if any(nm in k for nm in sc_names))
+                          if sc_trace else None)
     sp_plain_ms = event_ms(lambda: sample_pack.sample_pack_plain(
         sinter, dc, group, *tables), 3)
     sc_plain_ms = event_ms(lambda: stream_concat.stream_concat_plain(
@@ -674,6 +709,17 @@ def main() -> int:
         if row["name"] in inspector:
             row["inspector_launches"] = inspector[row["name"]]
     cli_phase()
+    # the kernels redesigned for the H100 since their port, with each
+    # instance's registers, spills, shared memory and stack from ptxas
+    by_name = {r["name"]: r for r in rows}
+    for name, lib, entries in (
+            ("sample_pack", "sample_pack", ["sample_pack_kernelIsLi1E"]),
+            ("sample_pack_per_image", "sample_pack",
+             ["sample_pack_kernelIsLi2E"]),
+            ("trellis", "trellis", global_names("trellis"))):
+        by_name[name]["redesigned"] = True
+        by_name[name]["ptxas"] = {e: ptxas_info(logs.get(lib, ""), e)
+                                  for e in entries}
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -881,17 +927,87 @@ def table_parity(dev) -> dict:
     return errs
 
 
-def sorted_by_search_work(cinter, group, iquant, ibias):
-    """The trellis rows (with their groups) by search work, densest first,
-    so that a warp's rows cost about the same; for shared matrices and
-    rate table only, since per-image sets follow the row index, which the
-    permutation breaks."""
+def trellis_edge_cases(cinter, group, mats, lt_img) -> dict:
+    """The ranked trellis op against its plain version on inputs cut from
+    the method-7 batch's first 24,576 rows (one image's worth): 48 images
+    of 512 blocks (far more images than the two whose sets a search CTA
+    stages), 512 images of 48 blocks (under 128: a CTA's rows span three
+    or more images), each with the batch's per-image matrices and rate
+    tables in turn; all-zero blocks (every search CTA writes DC-only rows);
+    and the rows with every other 1,024-row range zeroed (mixed CTAs).
+    Returns {case: max abs error}."""
     from sjpeg_tpu_torch.ops import trellis
 
-    order = torch.argsort(trellis.row_evaluations(cinter, iquant, ibias,
-                                                  group),
-                          descending=True, stable=True)
-    return cinter[order].contiguous(), group[order].contiguous()
+    rows = 24576
+    c, g = cinter[:rows].contiguous(), group[:rows].contiguous()
+    zeroed = c.clone()
+    for s in range(0, rows, 2048):
+        zeroed[s:s + 1024] = 0
+    errs = {}
+    for name, coeffs, n_img in [("images_48x512", c, 48),
+                                ("images_512x48", c, 512),
+                                ("all_zero", torch.zeros_like(c), 16),
+                                ("half_zero", zeroed, 16)]:
+        sets = [t[torch.arange(n_img, device=t.device) % t.shape[0]]
+                .contiguous() for t in (*mats, lt_img)]
+        got = trellis.trellis_quantize(coeffs, *sets[:3], g, sets[3], n_img)
+        want = trellis.trellis_quantize_plain(coeffs, *sets[:3], g, sets[3],
+                                              n_img)
+        torch.cuda.synchronize()
+        errs[name] = max_err([(got, want)])
+    return errs
+
+
+def trellis_ranking(cinter, group, iquant, ibias, quant, lt) -> dict:
+    """The ranking the op ran on the card (its scratch after one call with
+    per-image matrices) against a stable sort of the rows by their count of
+    nonzero bias-quantized AC values, heaviest first, computed here with
+    torch: the order of the rows with a coded AC position (class 0's are
+    the work pass's and not placed), their count, the chunks' class
+    histograms, their starts within each class and the class totals."""
+    from sjpeg_tpu_torch import kernels
+    from sjpeg_tpu_torch.ops import trellis
+
+    n = cinter.shape[0]
+    buf = trellis.scratch(n, cinter.device)
+    out = torch.empty_like(cinter)
+    trellis.launch(kernels.function("trellis", "sjpeg_trellis_ranked",
+                                    trellis._ARGTYPES),
+                   cinter, iquant, ibias, quant, group, lt, out, buf, BATCH)
+    hist, starts, totals, order, count, _ = trellis.scratch_parts(buf, n)
+    img = torch.arange(n, device=cinter.device) // (n // BATCH)
+    cls = torch.empty(n, dtype=torch.int64, device=cinter.device)
+    for s in range(0, n, 32768):
+        e = min(n, s + 32768)
+        iq, ib = (trellis.rows_from_mats(m, group[s:e], img[s:e])
+                  for m in (iquant, ibias))
+        v0 = trellis._bias_quantized(cinter[s:e].to(torch.int64).abs(),
+                                     iq, ib)
+        cls[s:e] = (v0[:, 1:] > 0).sum(1)
+    placed = int((cls > 0).sum())
+    want = torch.argsort(-cls, stable=True)[:placed]   # the check's own
+    want_hist = class_histograms(cls, *trellis.scratch_layout(n)[7:])
+    counts = want_hist.sum(1)
+    return {"order_equal": bool(torch.equal(order[:placed].long(), want)),
+            "placed_equal": int(count) == placed,
+            "histograms_equal": bool(torch.equal(hist.long(), want_hist)),
+            "starts_equal": bool(torch.equal(
+                starts.long(), want_hist.cumsum(1) - want_hist)),
+            "totals_equal": bool(torch.equal(totals.long(), counts)),
+            "zero_class_rows": int(counts[0]),
+            "classes_present": int((counts > 0).sum())}
+
+
+def class_histograms(cls: torch.Tensor, chunk: int,
+                     classes: int) -> torch.Tensor:
+    """[n] classes -> [classes, n_chunks] int64 counts of each class in
+    each chunk of `chunk` rows."""
+    n = cls.shape[0]
+    nc = -(-n // chunk)
+    out = torch.zeros(classes * nc, dtype=torch.int64, device=cls.device)
+    out.index_add_(0, cls * nc + torch.arange(n, device=cls.device) // chunk,
+                   torch.ones_like(cls))
+    return out.view(classes, nc)
 
 
 def method4_inputs(rgb: np.ndarray):
@@ -1075,7 +1191,7 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
                            3)
     mc_plain_ms = event_ms(lambda: plain_tables(jobs), 3)
     mc_us = kernel_us(launch_tables, "merge_codesizes")
-    mc_op_trace = device_kernels(tables_op, 5)
+    mc_op_trace, _ = source_trace(tables_op, "merge_codesizes")
     vp_us = kernel_us(lambda: launch_vlc_pack(dcl, acl, BATCH), "vlc_pack")
     e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 5)
     mpx = BATCH * HEIGHT * WIDTH / 1e6
@@ -1220,24 +1336,27 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     variants = {"per_image_mats": (iq, ib, qq, lt),
                 "shared_mats": (*shared, lt),
                 "per_image_rates": (iq, ib, qq, lt_img)}
-    csorted, gsorted = sorted_by_search_work(cinter, group, *shared[:2])
     errs = {}
-    for name, (a, b, q, r) in [*variants.items(),
-                               ("sorted_rows", variants["shared_mats"])]:
-        rows, grp = ((csorted, gsorted) if name == "sorted_rows"
-                     else (cinter, group))
-        got = trellis.trellis_quantize(rows, a, b, q, grp, r, BATCH)
-        want = trellis.trellis_quantize_plain(rows, a, b, q, grp, r, BATCH)
+    for name, (a, b, q, r) in variants.items():
+        got = trellis.trellis_quantize(cinter, a, b, q, group, r, BATCH)
+        want = trellis.trellis_quantize_plain(cinter, a, b, q, group, r,
+                                              BATCH)
         torch.cuda.synchronize()
         errs[name] = max_err([(got, want)])
         del got, want
+    errs.update(trellis_edge_cases(cinter, group, (iq, ib, qq), lt_img))
+    ranking = trellis_ranking(cinter, group, iq, ib, qq, lt)
     evaluations = trellis.search_evaluations(cinter, iq, ib, group, BATCH)
     emit("tr_parity", blocks=n, max_abs_err=errs,
-         table_max_abs_err=table_err,
+         table_max_abs_err=table_err, ranking=ranking,
          nonzero_ac_levels=int((levels[:, 1:] != 0).sum()),
          evaluated_scores=evaluations)
     need(all(e == 0 for e in errs.values()),
          "trellis bit-exact against its plain version (every variant)")
+    need(ranking["order_equal"] and ranking["placed_equal"]
+         and ranking["histograms_equal"] and ranking["starts_equal"]
+         and ranking["totals_equal"],
+         "the trellis op's ranking is the stable heaviest-first order")
     need(table_err == 0, "the table kernel exact on method 7's frequencies")
 
     # ---- tr_path --------------------------------------------------------
@@ -1308,29 +1427,30 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     need(all(cases.values()), "every method-7 case byte-equal")
 
     # ---- tr_timing ------------------------------------------------------
-    tr_fn = kernels.function("trellis", "sjpeg_trellis", trellis._ARGTYPES)
-    stream = torch.cuda.current_stream().cuda_stream
+    # the op's four launches into preallocated scratch, and the whole op
+    # (validation, scratch and output allocation) as the engine calls it
+    tr_fn = kernels.function("trellis", "sjpeg_trellis_ranked",
+                             trellis._ARGTYPES)
+    buf = trellis.scratch(n, dev)
 
-    def launch_trellis(a, b, q, r, coeffs=cinter, grp=group):
-        kernels.check(tr_fn(coeffs.data_ptr(), grp.data_ptr(),
-                            a.data_ptr(), b.data_ptr(), q.data_ptr(),
-                            r.data_ptr(), levels.data_ptr(), n, n // BATCH,
-                            1 if a.dim() == 2 else BATCH,
-                            1 if r.dim() == 2 else BATCH, stream), "trellis")
+    def launch_trellis(a, b, q, r, coeffs=cinter):
+        trellis.launch(tr_fn, coeffs, a, b, q, group, r, levels, buf, BATCH)
 
     tr_ms = {k: event_ms(lambda v=v: launch_trellis(*v), 20)
              for k, v in variants.items()}
-    # all-zero blocks open no node: the kernel's cost without its search
+    tr_ms["op"] = event_ms(lambda: trellis.trellis_quantize(
+        cinter, iq, ib, qq, group, lt, BATCH), 20)
+    # all-zero blocks open no node: the op's cost without a search
     zeros = torch.zeros_like(cinter)
     tr_ms["zero_blocks"] = event_ms(lambda: launch_trellis(
         *variants["per_image_mats"], coeffs=zeros), 20)
     del zeros
-    # against shared_mats: the same work without divergence across a warp
-    tr_ms["sorted_rows"] = event_ms(lambda: launch_trellis(
-        *variants["shared_mats"], coeffs=csorted, grp=gsorted), 20)
-    del csorted, gsorted
-    tr_us = kernel_us(lambda: launch_trellis(*variants["per_image_mats"]),
-                      "trellis")
+    tr_trace, tr_hits = source_trace(
+        lambda: launch_trellis(*variants["per_image_mats"]), "trellis")
+    tr_steps_us = {nm: v["us"] / v["launches"]
+                   for nm, v in (tr_trace or {}).items()
+                   if v["launches"] and "trellis" in nm}
+    tr_us = sum(tr_hits) if tr_hits else None
     tr_plain_ms = event_ms(lambda: trellis.trellis_quantize_plain(
         cinter, iq, ib, qq, group, lt, BATCH), 3)
     e2e_ms = host_ms(lambda: engine.encode_batch(rgb, param, device=dev), 5)
@@ -1400,6 +1520,7 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
                        launches["trellis"], max(errs.values()),
                        tr_ms["per_image_mats"], tr_plain_ms, tr_bytes,
                        tr_ops, variant_ms=tr_ms, device_us=tr_us,
+                       device_us_by_kernel=tr_steps_us,
                        evaluated_scores=evaluations)], table_err
 
 
@@ -2003,7 +2124,9 @@ def auto_sharp_phases(card: str, rgb: np.ndarray, logs: dict) -> list:
          risk_stats_device_us=kernel_us(
              lambda: risk_dev.risk_stats(src), "risk_stats", calls=20,
              trace=risk_trace),
-         risk_stats_op_device_us=sum(v["us"] for v in risk_trace.values()),
+         risk_stats_op_device_us=op_us(
+             lambda: risk_dev.risk_stats(src), "risk_stats", calls=20,
+             trace=risk_trace),
          risk_stats_event_us=risk_event_ms * 1e3,
          launches=launches, byte_equal_plain=same, bytes_total=sizes,
          encode_batch_ms=ms,
@@ -2159,8 +2282,8 @@ def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
              "photo_12mp": photo, "row_1x4032": photo[:, :1],
              "column_3024x1": np.ascontiguousarray(photo[:, :, :1]),
              "tiny_2x2": photo[:, :2, :2].copy()}
-    errs, times, plain, dev_us, op_us, nbytes, ops = ({}, {}, {}, {}, {},
-                                                      {}, {})
+    errs, times, plain, dev_us, op_dev_us, nbytes, ops = ({}, {}, {}, {},
+                                                          {}, {}, {})
     for name, imgs in cases.items():
         src = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
         got = risk_dev.risk_stats(src)
@@ -2173,7 +2296,8 @@ def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
             trace = device_kernels(lambda: risk_dev.risk_stats(src), 5)
             dev_us[name] = kernel_us(lambda: risk_dev.risk_stats(src),
                                      "risk_stats", trace=trace)
-            op_us[name] = sum(v["us"] for v in trace.values())
+            op_dev_us[name] = op_us(lambda: risk_dev.risk_stats(src),
+                                    "risk_stats", trace=trace)
             b, h, w = src.shape[:3]
             # the input read once and the [b, 3] int64 sums written once;
             # ~100 integer operations an interior position (the levels of
@@ -2183,7 +2307,7 @@ def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
             ops[name] = 100 * b * (h - 1) * (w - 1)
         del src, got, want
     emit("risk_kernel", gpu=card, max_abs_err=errs, ms=times,
-         device_us=dev_us, op_device_us=op_us, plain_ms=plain,
+         device_us=dev_us, op_device_us=op_dev_us, plain_ms=plain,
          bound_ms={k: max(nbytes[k] / H100_BYTES_PER_S,
                           ops[k] / H100_OPS_PER_S) * 1e3 for k in times},
          build=ptxas_info(build_log))
@@ -2194,7 +2318,7 @@ def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
                       "sjpeg_tpu/ops/riskiness.py:86-105", launches,
                       max(errs.values()), times[name], plain[name],
                       nbytes[name], ops[name], device_us=dev_us[name],
-                      op_device_us=op_us[name],
+                      op_device_us=op_dev_us[name],
                       photo_12mp_ms=times["photo_12mp"],
                       photo_12mp_device_us=dev_us["photo_12mp"],
                       photo_12mp_plain_ms=plain["photo_12mp"],

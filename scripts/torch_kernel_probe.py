@@ -21,8 +21,15 @@ are chip_smoke.py's main configuration, 16 x 1024 x 1024 RGB, 4:2:0, q75
   the shared K.3 LUTs;
 - sample_pack: method 0's int16 samples, shared K.3 tables and per-image
   sets (16 quantizers);
-- trellis: method 7's coefficients with fitted per-image matrices, and the
-  same rows sorted by search work with shared matrices;
+- trellis: method 7's coefficients with fitted per-image matrices (and,
+  as the engine has them, the K.3 rate table), and with shared matrices;
+  the per-image case at q40, with every row zero, and four times over (64
+  images); 4 x 512^2 at q75 and q40 (the method-7 search's batch).  For a
+  library that exports sjpeg_trellis_ranked the timed unit is the whole
+  op as ops/trellis.py runs it: its scratch (one buffer of the size
+  sjpeg_trellis_scratch gives), then the work pass, the class starts, the
+  scatter and the search; for one that exports sjpeg_trellis, its one
+  launch;
 - merge_codesizes: method 4's DC and AC frequencies.  The timed unit is
   the whole table build as that tree runs it: for a library that exports
   sjpeg_optimal_tables, its one launch (DC and AC rows in one grid); for
@@ -133,24 +140,44 @@ def interleaved_samples(rgb, tables):
     return engine._interleave_samples(blocks, tables[0], tables[1], nb, b)
 
 
-def trellis_inputs(rgb, dev):
-    """Method 7's coefficients, groups, per-image matrices and the K.3 rate
-    table; the rows sorted by search work with shared matrices."""
-    param = chip_smoke.method7(C.YUV_420)
-    nb = tuple(pipeline.component_layout(C.YUV_420, W, H).nb_blocks)
+def trellis_inputs(rgb, dev, quality=chip_smoke.QUALITY):
+    """Method 7's coefficients, groups, per-image matrices (quality
+    `quality`) and the K.3 rate table, with the batch's image count; the
+    same with shared matrices."""
+    b, h, w = rgb.shape[:3]
+    param = chip_smoke.method7(C.YUV_420, quality)
+    nb = tuple(pipeline.component_layout(C.YUV_420, w, h).nb_blocks)
     coeffs, histos = engine._stage_batch_coeffs(
-        torch.from_numpy(rgb).to(dev), "rgb", C.YUV_420, W, H, True, B)
-    per_qms, quant = engine._fit_quantizers(histos, param, 2, B, False)
+        torch.from_numpy(rgb).to(dev), "rgb", C.YUV_420, w, h, True, b)
+    per_qms, quant = engine._fit_quantizers(histos, param, 2, b, False)
     iq, ib = state.arrays_to_device(*quant, device=dev)
     qq, lt = state.arrays_to_device(engine._clamped_quant(per_qms, False),
                                     trellis_cost_lens(), device=dev)
-    cinter, _, group = engine._interleave_coeffs(coeffs, iq, ib, nb, B)
+    cinter, _, group = engine._interleave_coeffs(coeffs, iq, ib, nb, b)
     shared = state.arrays_to_device(*engine._quant_arrays(per_qms[0]),
                                     engine._clamped_quant(per_qms, True),
                                     device=dev)
-    return {"per_image_mats": (cinter, group, iq, ib, qq, lt),
-            "sorted_rows": (*chip_smoke.sorted_by_search_work(
-                cinter, group, *shared[:2]), *shared, lt)}
+    return {"per_image_mats": (cinter, group, iq, ib, qq, lt, b),
+            "shared_mats": (cinter, group, *shared, lt, b)}
+
+
+def trellis_cases(rgb, dev):
+    """The trellis's cases: the method-7 batch (per-image and shared
+    matrices); the same batch at q40; its rows all zero (no coded AC
+    position: the op's cost without a search); its rows four times over
+    (64 images, 1,572,864 blocks: how the ranking grows with the rows);
+    4 x 512^2 at q75 and q40, the method-7 search's batch."""
+    cases = trellis_inputs(rgb, dev)
+    c, g, iq, ib, qq, lt, b = cases["per_image_mats"]
+    cases["q40"] = trellis_inputs(rgb, dev, 40)["per_image_mats"]
+    cases["zero_rows"] = (torch.zeros_like(c), g, iq, ib, qq, lt, b)
+    cases["rows_x4"] = (c.repeat(4, 1), g.repeat(4), iq.repeat(4, 1, 1),
+                        ib.repeat(4, 1, 1), qq.repeat(4, 1, 1), lt, 4 * b)
+    small = chip_smoke.make_rgb(4, 512, 512, chip_smoke.SEED + 700)
+    for q in (75, 40):
+        cases[f"search_4x512_q{q}"] = trellis_inputs(
+            small, dev, q)["per_image_mats"]
+    return cases
 
 
 def make_cases(dev, wanted):
@@ -181,7 +208,7 @@ def make_cases(dev, wanted):
         cases["merge_codesizes"] = {"batch": (huffman_device.table_jobs(
             freqs[0].reshape(B, 2, -1), freqs[1].reshape(B, 2, -1)),)}
     if "trellis" in wanted:
-        cases["trellis"] = trellis_inputs(rgb, dev)
+        cases["trellis"] = trellis_cases(rgb, dev)
     if {"fdct", "quant_pack"} & wanted:
         nb = tuple(pipeline.component_layout(C.YUV_420, W, H).nb_blocks)
         blocks = colorspace.rgb_to_blocks(torch.from_numpy(rgb).to(dev),
@@ -216,8 +243,8 @@ def plain(kernel, args):
     if kernel == "sample_pack":
         return sample_pack.sample_pack_plain(*args[:3], *args[3])
     if kernel == "trellis":
-        c, g, a, b, q, r = args
-        return (trellis.trellis_quantize_plain(c, a, b, q, g, r, B),)
+        c, g, a, b, q, r, n_img = args
+        return (trellis.trellis_quantize_plain(c, a, b, q, g, r, n_img),)
     if kernel == "merge_codesizes":
         return [t for out in chip_smoke.plain_tables(*args) for t in out]
     if kernel == "fdct":
@@ -348,16 +375,29 @@ def launcher(kernel, lib, args, stream, buffers):
         return run
 
     if kernel == "trellis":
-        c, g, a, b, q, r = args
+        c, g, a, b, q, r, n_img = args
         n = c.shape[0]
         levels = buffers.setdefault("levels", torch.empty_like(c))
-        f = fn("sjpeg_trellis", trellis._ARGTYPES)
+        if hasattr(lib, "sjpeg_trellis_ranked"):
+            f = fn("sjpeg_trellis_ranked", trellis._ARGTYPES)
+            parts = (ctypes.c_int64 * 9)()    # the tree's scratch layout
+            check(fn("sjpeg_trellis_scratch", [ctypes.c_int,
+                                               ctypes.c_void_p])(
+                n, ctypes.addressof(parts)))
+
+            def op():         # its scratch, then the four launches
+                trellis.launch(f, c, a, b, q, g, r, levels, torch.empty(
+                    (parts[6],), dtype=torch.int32, device=c.device), n_img)
+                return (levels,)
+            return op
+        f = fn("sjpeg_trellis", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+               + [ctypes.c_void_p])
 
         def run():
             check(f(c.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
-                    q.data_ptr(), r.data_ptr(), levels.data_ptr(), n, n // B,
-                    1 if a.dim() == 2 else B, 1 if r.dim() == 2 else B,
-                    stream))
+                    q.data_ptr(), r.data_ptr(), levels.data_ptr(), n,
+                    n // n_img, 1 if a.dim() == 2 else n_img,
+                    1 if r.dim() == 2 else n_img, stream))
             return (levels,)
         return run
 
@@ -752,6 +792,22 @@ def sharp_steps(lib, cases, device_us, tree):
     return out
 
 
+def traced_us(fn, tries: int = 3):
+    """(chip_smoke.device_kernels trace of 5 calls of fn, the device
+    microseconds a call of its kernels and memsets, not its copies): a
+    trace that recorded no kernel, or lost some calls' launches (a kernel
+    or memset recorded a fractional number of times a call), is taken
+    again, up to `tries`; after that the time is None, never a part."""
+    for _ in range(tries):
+        kern = chip_smoke.device_kernels(fn, 5)
+        ours = {k: v for k, v in kern.items() if not k.startswith("Memcpy")}
+        if ours and all(v["launches"] >= 1
+                        and v["launches"] == int(v["launches"])
+                        for v in ours.values()):
+            return kern, sum(v["us"] for v in ours.values())
+    return kern, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", action="append", default=[],
@@ -831,11 +887,9 @@ def main() -> int:
                 chip_smoke.launch_ms(fn.restore, fn.launch, args.reps)
                 if hasattr(fn, "launch")
                 else chip_smoke.event_ms(fn, args.reps))
-    profile = {key: chip_smoke.device_kernels(fn, 5)
-               for key, fn in launches.items()}
-    device_us = {key: sum(v["us"] for k, v in kern.items()   # not restores
-                          if not k.startswith("Memcpy"))
-                 for key, kern in profile.items()}
+    profile, device_us = {}, {}
+    for key, fn in launches.items():
+        profile[key], device_us[key] = traced_us(fn)
     steps = {t: (sharp_steps_cluster if t in clustered else sharp_steps)(
         lib, cases["sharp_yuv"], device_us, t)
         for t, lib in steps_libs.items()}

@@ -6,13 +6,14 @@
 // for the kernels (fdct.cu, quant_pack.cu, sample_pack.cu, vlc_pack.cu) and
 // with a host compiler for tests, which supply their own empty
 // __host__/__device__ definitions.  The emission half has two walks over
-// one BitSink (DC piece, AC piece, flush): emit_block visits all 63
-// positions, and quant_emit_block feeds it the fields it derives from
-// quantized coefficients (quant_pack, and sample_pack after fdct_block);
-// emit_coded visits only the coded positions of a mask, and vlc_pack feeds
-// it the fields it is given, quant_pack (quant_emit_coded) the fields it
-// derives from coefficients staged in zigzag order.  fdct runs fdct_block
-// alone.
+// one BitSink (DC piece, AC piece, flush): emit_coded visits only the coded
+// positions of a mask, and every kernel runs it: vlc_pack on the fields it
+// is given, quant_pack (quant_emit_coded) on coefficients staged in zigzag
+// order, sample_pack (quant_emit_coded) on the zigzag row that
+// fdct_zigzag stores.  emit_block visits all 63 positions; quant_emit_block feeds
+// it from raster coefficients.  No kernel runs that dense walk any more:
+// the tests hold it, as a second reading of the same stream, against the
+// plain version beside the coded walk.  fdct runs fdct_block alone.
 //
 // Bit-exact contract: the result equals the port's plain PyTorch chain
 // ops/fdct.fdct_blocks_plain -> ops/quantize ->
@@ -293,8 +294,7 @@ SJ_HD int emit_coded(uint32_t dc_code, const uint32_t* dc_lut,
 // table group g (0 luma, 1 chroma), quantizer rows iquant/bias [2 * 64]
 // (raster), packed (code << 16 | len) LUTs dc_lut [2 * 16] and ac_lut
 // [2 * 256].  Writes out[0..63] (zero past the stream) and returns the exact
-// bit count.  quant_pack runs it on coefficients, sample_pack after
-// fdct_block.
+// bit count.  The dense reading of quant_emit_coded's stream.
 SJ_HD int quant_emit_block(const uint32_t x[64], uint32_t dc_code, int g,
                            const uint32_t* iquant, const uint32_t* bias,
                            const uint32_t* dc_lut, const uint32_t* ac_lut,
@@ -320,41 +320,75 @@ SJ_HD int quant_emit_block(const uint32_t x[64], uint32_t dc_code, int g,
   return emit_block(dc_code, dc_lut + 16 * g, ac_lut + 256 * g, fields, out);
 }
 
+// A group's quantizer rows in zigzag order, as the coded walk reads them:
+// at(k) is the (iquant, bias) pair of zigzag position k.  Three layouts:
+// ZigzagRows, two rows in zigzag order (quant_pack's padded shared rows);
+// PairRows, pairs interleaved by group, position k of group g at
+// p[2 k + g] with p the set's first pair (sample_pack's staging: one 8-byte
+// load a position, and the two groups of a position in different banks);
+// RasterRows, the raster rows read through the zigzag table zz (sample_pack
+// for a CTA's rows past its staged sets).
+struct alignas(8) QPair {
+  uint32_t iquant, bias;
+};
+struct ZigzagRows {
+  const uint32_t* iq;
+  const uint32_t* ib;
+  SJ_HD QPair at(int k) const { return {iq[k], ib[k]}; }
+};
+struct PairRows {
+  const QPair* p;   // the group's first pair: the set's pairs + g
+  SJ_HD QPair at(int k) const { return p[2 * k]; }
+};
+struct RasterRows {
+  const uint32_t* iq;
+  const uint32_t* ib;
+  const int* zz;
+  SJ_HD QPair at(int k) const {
+    const int p = zz[k];
+    return {iq[p], ib[p]};
+  }
+};
+
 // The coded positions of one block staged in zigzag order: bit k (1..63)
 // of the result is set where row[k], the coefficient at zigzag position k,
-// quantizes to nonzero with its group's quantizer rows iq, ib [64] in
-// zigzag order.
-SJ_HD uint64_t quant_coded_mask(const uint32_t* row, const uint32_t* iq,
-                                const uint32_t* ib) {
+// quantizes to nonzero with its group's quantizer rows q in zigzag order.
+template <typename Rows>
+SJ_HD uint64_t quant_coded_mask(const uint32_t* row, Rows q) {
   uint64_t mask = 0;
 #pragma unroll
-  for (int k = 1; k < 64; ++k)
-    mask |= (uint64_t)(quantize((int32_t)row[k], iq[k], ib[k]) != 0) << k;
+  for (int k = 1; k < 64; ++k) {
+    const QPair t = q.at(k);
+    mask |= (uint64_t)(quantize((int32_t)row[k], t.iquant, t.bias) != 0)
+            << k;
+  }
   return mask;
 }
 
 // quant_emit_block over the coded positions only, in place: row[k] holds
-// the block's coefficient at zigzag position k (x16 scale), iq, ib [64]
-// its group's quantizer rows in zigzag order, mask = quant_coded_mask(row,
-// iq, ib), dc_lut [16] and ac_lut [256] its group's LUT rows.  emit_coded
-// writes the stream over row[0..63] (zero past it) and the exact bit count
-// is returned, both as quant_emit_block gives them.  Runs are the gaps
+// the block's coefficient at zigzag position k (x16 scale), q its group's
+// quantizer rows in zigzag order, mask = quant_coded_mask(row, q), dc_lut
+// [16] and ac_lut [256] its group's LUT rows.  emit_coded writes the
+// stream over row[0..63] (zero past it) and the exact bit count is
+// returned, both as quant_emit_block gives them.  Runs are the gaps
 // between coded positions, so the stream never reaches a slot still to be
 // read: emit_coded's in_place always holds (a host build may check it by
 // defining SJ_CHECK_IN_PLACE).
 #ifndef SJ_CHECK_IN_PLACE
 #define SJ_CHECK_IN_PLACE(in_place) ((void)0)
 #endif
+template <typename Rows>
 SJ_HD int quant_emit_coded(uint32_t* row, uint64_t mask, uint32_t dc_code,
-                           const uint32_t* iq, const uint32_t* ib,
-                           const uint32_t* dc_lut, const uint32_t* ac_lut) {
+                           Rows q, const uint32_t* dc_lut,
+                           const uint32_t* ac_lut) {
   int last = 0;
   auto field = [&](int k, bool in_place) {
     SJ_CHECK_IN_PLACE(in_place);
-    const int32_t q = quantize((int32_t)row[k], iq[k], ib[k]);
-    const uint32_t mag = (uint32_t)(q < 0 ? -q : q);
+    const QPair t = q.at(k);
+    const int32_t v = quantize((int32_t)row[k], t.iquant, t.bias);
+    const uint32_t mag = (uint32_t)(v < 0 ? -v : v);
     const uint32_t size = calc_log2(mag);
-    const uint32_t code = (q < 0 ? ~mag : mag) & ((1u << size) - 1u);
+    const uint32_t code = (v < 0 ? ~mag : mag) & ((1u << size) - 1u);
     const uint32_t run = (uint32_t)(k - last - 1);
     last = k;
     return (run << 21) | (size << 16) | code;
@@ -362,14 +396,15 @@ SJ_HD int quant_emit_coded(uint32_t* row, uint64_t mask, uint32_t dc_code,
   return emit_coded(dc_code, dc_lut, ac_lut, mask, field, row);
 }
 
-// One block from raster samples x[64] (destroyed): fdct_block, then
-// quant_emit_block with the same arguments.
-SJ_HD int encode_block(uint32_t x[64], uint32_t dc_code, int g,
-                       const uint32_t* iquant, const uint32_t* bias,
-                       const uint32_t* dc_lut, const uint32_t* ac_lut,
-                       uint32_t* out) {
+// sample_pack's first half of a block: raster samples x[64] (destroyed)
+// through fdct_block, the coefficients stored into row[0..63] in zigzag
+// order.  Then quant_emit_coded(row, quant_coded_mask(row, q), ...) writes
+// the stream over row, as quant_emit_block on the coefficients writes it.
+SJ_HD void fdct_zigzag(uint32_t x[64], uint32_t* row) {
   fdct_block(x);
-  return quant_emit_block(x, dc_code, g, iquant, bias, dc_lut, ac_lut, out);
+  const int zigzag[64] = SJPEG_ZIGZAG;
+#pragma unroll
+  for (int k = 0; k < 64; ++k) row[k] = x[zigzag[k]];
 }
 
 }  // namespace sjpeg

@@ -70,11 +70,10 @@ quant_pack_kernel(const int32_t* __restrict__ coeffs,
     const int64_t b = n0 + tid;
     const int g = group[b] & 1;
     uint32_t* row = buf + tid * kStride;
-    const uint32_t* iq = s_iq + g * kQStride;
-    const uint32_t* ib = s_ib + g * kQStride;
-    bits[b] = sjpeg::quant_emit_coded(
-        row, sjpeg::quant_coded_mask(row, iq, ib), (uint32_t)dc_codes[b], iq,
-        ib, s_dc + 16 * g, s_ac + 256 * g);
+    const sjpeg::ZigzagRows q{s_iq + g * kQStride, s_ib + g * kQStride};
+    bits[b] = sjpeg::quant_emit_coded(row, sjpeg::quant_coded_mask(row, q),
+                                      (uint32_t)dc_codes[b], q,
+                                      s_dc + 16 * g, s_ac + 256 * g);
   }
   __syncthreads();
 

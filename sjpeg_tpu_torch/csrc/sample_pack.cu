@@ -21,20 +21,26 @@
 // block, 128 blocks per CTA.  The CTA stages its 128 x 64 samples through
 // shared memory so that global reads and writes are coalesced (rows padded
 // to 65 words, block_rows.cuh: no bank conflicts when each thread walks its
-// own row), runs the per-block core of block_core.cuh with the block in
-// registers, and writes its stream words into the same shared rows before
-// the coalesced store.  Serial emission per thread diverges across a warp:
-// emit_block steps over all 63 positions, zero or not.  Measured on the
-// H100 (PERF.md), a warp per block (ballots, a scan and an atomicOr
-// scatter) is no faster: it issues some 150 warp instructions a block,
-// where 32 threads on 32 blocks share every instruction; a thread that
-// walks only its block's coded positions takes about half the time and is
-// the next design (ROADMAP S2).
-// Tables: the shared-table instance stages the one set; the per-image
-// instance stages the sets of the (at most two) images its 128 rows span,
-// as vlc_pack.cu does, 39,680 B of static shared memory in all, and a CTA
-// spanning more images (images under 128 blocks) reads its rows' sets from
-// global memory through the read-only cache.
+// own row).  Each thread takes its block into registers, runs fdct_block
+// there and stores the coefficients back into its row in zigzag order
+// (block_core.cuh fdct_zigzag); then, as quant_pack.cu does, it quantizes
+// the row's 63 AC slots once for the mask of coded positions
+// (quant_coded_mask) and walks only those (quant_emit_coded), the stream
+// written into the same row before the coalesced store.  A warp thus waits
+// for its block with the most coded positions, not for 63 steps of every
+// block as the dense walk (emit_block) made it.  Measured on the H100 at
+// 16 x 1024^2 (scripts/torch_kernel_probe.py, parent and change in one
+// call; PERF.md section 6): 0.124-0.126 ms (shared tables) and
+// 0.126-0.128 ms (16 per-image sets) against 0.244-0.246 ms for the dense
+// walk, 80 and 96 registers, no spills.
+// Tables: the quantizer rows are staged in zigzag order as (iquant, bias)
+// pairs, the two groups of a position side by side (block_core.cuh
+// PairRows: one 8-byte load a position, no bank conflict between groups).
+// The shared-table instance stages the one set; the per-image instance
+// stages the sets of the (at most two) images its 128 rows span, as
+// vlc_pack.cu does, 39,680 B of static shared memory in all, and a row of a
+// further image (images under 128 blocks) reads its set's raster rows from
+// global memory through a zigzag table (RasterRows) and its LUTs there.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,6 +54,8 @@ constexpr int kStride = sjpeg::kRowStride;     // padded row, in words
 constexpr int kQSet = 2 * 64;   // one set's iquant (or bias) rows
 constexpr int kDcSet = 2 * 16;  // one set's DC LUT rows
 constexpr int kAcSet = 2 * 256; // one set's AC LUT rows
+
+__device__ const int kZigzag[64] = SJPEG_ZIGZAG;
 
 // kSets: table sets staged in shared memory, 1 (shared tables) or 2 (per
 // image: row r uses set r / per_img)
@@ -63,7 +71,7 @@ sample_pack_kernel(const T* __restrict__ samples,
                    uint32_t* __restrict__ words, int32_t* __restrict__ bits,
                    int n, int per_img) {
   __shared__ uint32_t buf[kThreads * kStride];
-  __shared__ uint32_t s_iq[kSets * kQSet], s_ib[kSets * kQSet];
+  __shared__ sjpeg::QPair s_q[kSets * kQSet];   // [set][zigzag k][group]
   __shared__ uint32_t s_dc[kSets * kDcSet], s_ac[kSets * kAcSet];
   const int tid = threadIdx.x;
   const int64_t n0 = (int64_t)blockIdx.x * kThreads;
@@ -73,8 +81,10 @@ sample_pack_kernel(const T* __restrict__ samples,
   const int set_hi = kSets > 1 ? (int)((n0 + rows - 1) / per_img) : 0;
   const int staged = min(set_hi - set_lo + 1, kSets);
   for (int i = tid; i < staged * kQSet; i += kThreads) {
-    s_iq[i] = iquant[(int64_t)set_lo * kQSet + i];
-    s_ib[i] = bias[(int64_t)set_lo * kQSet + i];
+    const int s = i >> 7, k = (i >> 1) & 63, g = i & 1;
+    const int64_t src =
+        (int64_t)(set_lo + s) * kQSet + 64 * g + sjpeg::zigzag_raster(k);
+    s_q[i] = sjpeg::QPair{iquant[src], bias[src]};
   }
   for (int i = tid; i < staged * kDcSet; i += kThreads)
     s_dc[i] = dc_lut[(int64_t)set_lo * kDcSet + i];
@@ -83,27 +93,31 @@ sample_pack_kernel(const T* __restrict__ samples,
   sjpeg::load_rows(samples + n0 * 64, rows, buf);
   __syncthreads();
 
-  uint32_t x[64];
-#pragma unroll
-  for (int k = 0; k < 64; ++k) x[k] = buf[tid * kStride + k];
-  __syncthreads();
-
+  // from here on each thread reads and writes its own row only
   if (tid < rows) {
     const int64_t b = n0 + tid;
+    const int g = group[b] & 1;
+    uint32_t* row = buf + tid * kStride;
+    uint32_t x[64];
+#pragma unroll
+    for (int k = 0; k < 64; ++k) x[k] = row[k];
+    sjpeg::fdct_zigzag(x, row);
+    const uint32_t dc = (uint32_t)dc_codes[b];
     const int set = kSets > 1 ? (int)(b / per_img) : 0;
     const int k = set - set_lo;
-    const uint32_t* iq = s_iq + k * kQSet;
-    const uint32_t* ib = s_ib + k * kQSet;
-    const uint32_t* dcl = s_dc + k * kDcSet;
-    const uint32_t* acl = s_ac + k * kAcSet;
-    if (k >= staged) {               // a third image in this CTA's rows
-      iq = iquant + (int64_t)set * kQSet;
-      ib = bias + (int64_t)set * kQSet;
-      dcl = dc_lut + (int64_t)set * kDcSet;
-      acl = ac_lut + (int64_t)set * kAcSet;
+    if (kSets == 1 || k < staged) {
+      const sjpeg::PairRows q{s_q + k * kQSet + g};
+      bits[b] = sjpeg::quant_emit_coded(
+          row, sjpeg::quant_coded_mask(row, q), dc, q,
+          s_dc + k * kDcSet + 16 * g, s_ac + k * kAcSet + 256 * g);
+    } else {                         // a third image in this CTA's rows
+      const int64_t o = (int64_t)set * kQSet + 64 * g;
+      const sjpeg::RasterRows q{iquant + o, bias + o, kZigzag};
+      bits[b] = sjpeg::quant_emit_coded(
+          row, sjpeg::quant_coded_mask(row, q), dc, q,
+          dc_lut + (int64_t)set * kDcSet + 16 * g,
+          ac_lut + (int64_t)set * kAcSet + 256 * g);
     }
-    bits[b] = sjpeg::encode_block(x, (uint32_t)dc_codes[b], group[b] & 1, iq,
-                                  ib, dcl, acl, buf + tid * kStride);
   }
   __syncthreads();
 

@@ -6,8 +6,9 @@ and sample_vlc_pack_pallas, shared tables and per-image tables
 (`tiles_per_img`; source and design notes in csrc/sample_pack.cu).
 `sample_pack` launches the CUDA kernel for CUDA tensors and runs
 `sample_pack_plain`, the plain fDCT followed by quant_pack's plain version,
-for CPU tensors.  The kernel runs each block on one thread: its fDCT, then
-the serial emission over all 63 positions.
+for CPU tensors.  The kernel runs each block on one thread: its fDCT in
+registers, the coefficients stored in zigzag order, then the walk over
+the block's coded positions only (quant_pack's).
 """
 
 import ctypes

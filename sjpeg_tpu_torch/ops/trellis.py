@@ -4,11 +4,12 @@ tables.
 
 Replaces sjpeg_tpu/ops/pallas_trellis.py trellis_quantize_pallas (source
 and design notes in csrc/trellis.cu, whose per-block search lives in
-csrc/trellis_core.cuh).  `trellis_quantize` launches the CUDA kernel for
-CUDA tensors and runs `trellis_quantize_plain` for CPU tensors.  The kernel
-runs each block's search on one thread; `row_evaluations` counts each
-block's share of the search, by which rows can be sorted to measure the
-warp divergence.
+csrc/trellis_core.cuh).  `trellis_quantize` runs the CUDA op for CUDA
+tensors (a work pass that also writes the rows without a coded AC
+position, a stable ranking of the other rows by work, heaviest first,
+then each of their blocks' search on one thread in that order) and
+`trellis_quantize_plain` for CPU tensors.  `search_evaluations` counts the
+search's scores.
 
 The plain version is the torch twin of sjpeg_tpu/ops/trellis.py
 trellis_quantize_blocks_jax: the reference's per-block node search
@@ -24,6 +25,7 @@ temporaries stay near 70 MB each at 16 x 1024^2.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,7 +33,7 @@ from .. import constants as C
 from .. import kernels
 from .quantize import quantize_values
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _M32 = 0xFFFFFFFF        # uint32 mask, and KMAX: the score of no path
 _SINK = 126
 _CHUNK = 32768
@@ -170,17 +172,17 @@ def trellis_quantize_plain(cinter, iquant, ibias, quant, group, lt_lens,
     return out
 
 
-def row_evaluations(cinter, iquant, ibias, group,
-                    n_images: int = 1) -> torch.Tensor:
-    """[N] int64: the (candidate, predecessor) scores the node search
-    evaluates on each block: at zigzag position i each opened candidate
-    searches the sink and every candidate opened before i.  Exact when
-    every candidate finds a score below 0xFFFFFFFF, which is what makes it
-    a node."""
+def search_evaluations(cinter, iquant, ibias, group,
+                       n_images: int = 1) -> int:
+    """The (candidate, predecessor) scores the node search evaluates on
+    these blocks: at zigzag position i each opened candidate searches the
+    sink and every candidate opened before i.  Exact when every candidate
+    finds a score below 0xFFFFFFFF, which is what makes it a node.  Sets
+    the operation count of the kernel's bound."""
     n = cinter.shape[0]
     dev = cinter.device
     zz = torch.as_tensor(C.ZIGZAG[1:], dtype=torch.int64, device=dev)
-    out = torch.empty((n,), dtype=torch.int64, device=dev)
+    total = 0
     for s in range(0, n, _CHUNK):
         e = min(n, s + _CHUNK)
         g, img = group[s:e], _images(s, e, max(n // n_images, 1), dev)
@@ -188,15 +190,8 @@ def row_evaluations(cinter, iquant, ibias, group,
         v0 = _bias_quantized(cinter[s:e, zz].to(torch.int64).abs(), iq, ib)
         opened = (v0 > 0).to(torch.int64) + (v0 > 1).to(torch.int64)
         before = 1 + torch.cumsum(opened, dim=1) - opened
-        out[s:e] = (before * opened).sum(1)
-    return out
-
-
-def search_evaluations(cinter, iquant, ibias, group,
-                       n_images: int = 1) -> int:
-    """The scores the node search evaluates on these blocks, summed over
-    `row_evaluations`.  Sets the operation count of the kernel's bound."""
-    return int(row_evaluations(cinter, iquant, ibias, group, n_images).sum())
+        total += int((before * opened).sum())
+    return total
 
 
 def _sets(t: torch.Tensor, tail) -> int:
@@ -207,6 +202,57 @@ def _sets(t: torch.Tensor, tail) -> int:
     if t.dim() == len(tail) + 1 and tuple(t.shape[1:]) == tail:
         return t.shape[0]
     raise ValueError(f"trellis_quantize: table shape {tuple(t.shape)}")
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_layout(n: int) -> tuple:
+    """The op's scratch for n rows, as its library lays it out
+    (sjpeg_trellis_scratch): the offsets in int32 words of the class
+    histograms, class starts, class totals, order, count placed and keys;
+    the words in all; the rows a chunk; the classes."""
+    parts = (ctypes.c_int64 * 9)()
+    fn = kernels.function("trellis", "sjpeg_trellis_scratch",
+                          [ctypes.c_int, ctypes.c_void_p])
+    kernels.check(fn(n, ctypes.addressof(parts)), "trellis")
+    return tuple(parts)
+
+
+def scratch(n: int, device) -> torch.Tensor:
+    """The op's scratch for n rows on `device`: one int32 buffer a call,
+    of the size its library gives."""
+    return torch.empty((scratch_layout(n)[6],), dtype=torch.int32,
+                       device=device)
+
+
+def scratch_parts(buf: torch.Tensor, n: int) -> tuple:
+    """Views of an n-row call's scratch, to read it back: the chunks'
+    [classes, n_chunks] int32 class histograms and their starts within
+    each class, the [classes] int32 class totals, the [n] int32 order (its
+    first `placed` entries: the rows of classes above 0, ranked), the [1]
+    int32 count placed, and the [n_chunks * chunk] int16 keys (uint16
+    bits: a row's class << 8 | its rank among its chunk's rows of its
+    class)."""
+    at = scratch_layout(n)
+    chunk, classes = at[7], at[8]
+    nc = -(-n // chunk)
+    part = [buf[at[i]:at[i + 1]] for i in range(6)]
+    return (part[0].view(classes, nc), part[1].view(classes, nc), *part[2:5],
+            part[5].view(torch.int16))
+
+
+def launch(fn, cinter, iquant, ibias, quant, group, lt_lens, out, buf,
+           n_images: int) -> None:
+    """The op's four launches (work pass, class starts, scatter, search) on
+    the current stream, writing `out`, with `scratch`'s buffer `buf`; fn is
+    the C entry sjpeg_trellis_ranked of a built library, its argtypes
+    _ARGTYPES.  Counts nothing."""
+    n = cinter.shape[0]
+    sets = [1 if t.dim() == 2 else t.shape[0] for t in (iquant, lt_lens)]
+    kernels.check(fn(cinter.data_ptr(), group.data_ptr(), iquant.data_ptr(),
+                     ibias.data_ptr(), quant.data_ptr(), lt_lens.data_ptr(),
+                     out.data_ptr(), buf.data_ptr(), n, max(n // n_images, 1),
+                     *sets, torch.cuda.current_stream().cuda_stream),
+                  "trellis")
 
 
 def trellis_quantize(cinter, iquant, ibias, quant, group, lt_lens,
@@ -240,12 +286,10 @@ def trellis_quantize(cinter, iquant, ibias, quant, group, lt_lens,
             or any(s not in (1, n_images) for s in (mat_sets, lt_sets))):
         raise ValueError("trellis_quantize: shape mismatch")
     out = torch.empty((n, 64), dtype=torch.int32, device=cinter.device)
-    fn = kernels.function("trellis", "sjpeg_trellis", _ARGTYPES)
+    fn = kernels.function("trellis", "sjpeg_trellis_ranked", _ARGTYPES)
     with torch.cuda.device(cinter.device):
-        rc = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), n,
-                max(n // n_images, 1), mat_sets, lt_sets,
-                torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "trellis")
+        launch(fn, cinter, iquant, ibias, quant, group, lt_lens, out,
+               scratch(n, cinter.device), n_images)
     trellis_quantize.launches += 1
     if lt_sets > 1:
         trellis_quantize.per_image_rate_launches += 1

@@ -368,6 +368,107 @@ def test_trellis_small_images_and_full_rows_on_gpu(per_img, sets):
     assert (got[::4, 1:] != 0).sum(1).max() > 40
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["images_40x160", "images_64x48",
+                                  "all_zero", "half_zero"])
+@pytest.mark.parametrize("sets", ["shared", "both"])
+def test_trellis_ranked_cases_on_gpu(case, sets):
+    """The ranked trellis op == its plain version over 40 images of 160
+    blocks (far more images than the two whose sets a search CTA stages),
+    64 images of 48 (under 128 blocks), all-zero blocks (every search CTA
+    writes DC-only rows) and rows with every other 512-row range zeroed;
+    one op a call by the launch count."""
+    _need_cuda()
+    n_images, per_img = {"images_40x160": (40, 160),
+                         "images_64x48": (64, 48)}.get(case, (16, 400))
+    args = list(_trellis_inputs(n_images, per_img, sets == "both",
+                                sets == "both", 32))
+    if case == "all_zero":
+        args[0].zero_()
+    elif case == "half_zero":
+        for s in range(0, args[0].shape[0], 1024):
+            args[0][s:s + 512] = 0
+    before = trellis.trellis_quantize.launches
+    got = trellis.trellis_quantize(*args, n_images=n_images)
+    assert trellis.trellis_quantize.launches == before + 1
+    want = trellis.trellis_quantize_plain(*args, n_images=n_images)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sets,n_images", [("shared", 5), ("both", 5),
+                                            ("both", 100)])
+def test_trellis_ranking_on_gpu(sets, n_images):
+    """The op's ranking, read from its scratch: the rows by their count of
+    nonzero bias-quantized AC values, heaviest first, row order kept
+    within a count, class 0 not placed (the work pass writes its levels);
+    how many are placed; the chunks' class histograms, their starts within
+    each class and the class totals (100 images: 274 chunks, two a thread
+    of the class-start scan, its last threads none)."""
+    _need_cuda()
+    per_img = 700
+    c, iq, ib, qq, g, lt = _trellis_inputs(n_images, per_img,
+                                           sets == "both", sets == "both", 33)
+    n = c.shape[0]
+    buf = trellis.scratch(n, c.device)
+    trellis.launch(trellis.kernels.function(
+        "trellis", "sjpeg_trellis_ranked", trellis._ARGTYPES),
+        c, iq, ib, qq, g, lt, torch.empty_like(c), buf, n_images)
+    hist, starts, totals, order, count, _ = trellis.scratch_parts(buf, n)
+    img = torch.arange(n, device="cuda") // per_img
+    iqr, ibr = (trellis.rows_from_mats(m, g, img) for m in (iq, ib))
+    v0 = trellis._bias_quantized(c.to(torch.int64).abs(), iqr, ibr)
+    cls = (v0[:, 1:] > 0).sum(1)
+    placed = int((cls > 0).sum())
+    assert torch.equal(order[:placed].long(),
+                       torch.argsort(-cls, stable=True)[:placed])
+    assert int(count) == placed
+    chunk, classes = trellis.scratch_layout(n)[7:]
+    nc = -(-n // chunk)
+    want = torch.zeros(classes * nc, dtype=torch.int64, device="cuda")
+    want.index_add_(0, cls * nc + torch.arange(n, device="cuda") // chunk,
+                    torch.ones_like(cls))
+    want = want.view(classes, nc)
+    assert torch.equal(hist.long(), want)
+    assert torch.equal(starts.long(), want.cumsum(1) - want)
+    assert torch.equal(totals.long(), want.sum(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("q", [75, 100])
+@pytest.mark.parametrize("per_image", [False, True])
+def test_sample_pack_zigzag_staging_on_gpu(per_image, q, dtype):
+    """sample_pack's coded walk == its plain version over 5 images of 48
+    blocks (a CTA's rows span three or four images, the third's read
+    through the zigzag table) with a quality an image, or shared tables;
+    8-bit and full int16-range samples, int16 or int32."""
+    _need_cuda()
+    n_images, per_img = 5, 48
+    n = n_images * per_img
+    rng = np.random.RandomState(34)
+    samples = rng.randint(-128, 129, (n, 64))
+    samples[1::4] //= 16
+    samples[::4] = rng.randint(-32768, 32768, (len(samples[::4]), 64))
+    dc = vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-2047, 2048, n)).cuda(), n_images)
+    group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32)).cuda()
+    quals = [q - 10 * i for i in range(n_images)] if per_image else [q]
+    quants = [engine._quant_arrays(engine._quant_matrices(
+        EncoderParam(quality=x))) for x in quals]
+    luts = engine._host_luts(k3_default_tables())
+    if per_image:
+        arrays = (*(np.stack([a[k] for a in quants]) for k in range(2)),
+                  *(np.stack([a] * n_images) for a in luts))
+    else:
+        arrays = (*quants[0], *luts)
+    t = state.tables_from_numpy(*arrays, "cuda")
+    x = torch.from_numpy(samples).to("cuda", dtype)
+    words, bits = sample_pack.sample_pack(x, dc, group, *t)
+    pw, pb = sample_pack.sample_pack_plain(x, dc, group, *t)
+    assert torch.equal(bits, pb) and torch.equal(words, pw)
+
+
 def _full_piece_luts(rng):
     """[2, 16] DC and [2, 256] AC LUTs whose every piece is 32 bits (code
     lengths 32 - size): a block with every position coded fills all

@@ -148,17 +148,85 @@ extern "C" void quant_emit_blocks(const int32_t* coeffs, const int32_t* dc,
                                       (uint32_t)dc[b], group[b], iq, ib,
                                       dcl, acl, words + 64 * b);
 }
+// As sample_pack's kernel: CTAs of 128 rows, each staging the zigzag
+// (iquant, bias) pairs (PairRows layout) and the LUTs of the first sets its
+// rows span, 1 with shared tables (n_sets 1), at most 2 per image; a row of
+// a further set reads its set's raster rows through the zigzag table
+// (RasterRows) and its LUTs in place.  Each row: its samples, fdct_zigzag,
+// quant_coded_mask and quant_emit_coded in place.  Returns how many rows
+// read raster rows.  Samples are int32 or int16, widened as the kernel's
+// staging widens them.
+template <typename T>
+int sample_pack_rows(const T* samples, const int32_t* dc,
+                     const int32_t* group, const uint32_t* iq,
+                     const uint32_t* ib, const uint32_t* dcl,
+                     const uint32_t* acl, uint32_t* words, int32_t* bits,
+                     int n, int per_img, int n_sets) {
+  const int zz[64] = SJPEG_ZIGZAG;
+  const int max_sets = n_sets > 1 ? 2 : 1;
+  sjpeg::QPair pairs[2 * 128];
+  int raster_rows = 0;
+  for (int n0 = 0; n0 < n; n0 += 128) {
+    const int rows = n - n0 < 128 ? n - n0 : 128;
+    const int lo = n_sets > 1 ? n0 / per_img : 0;
+    const int hi = n_sets > 1 ? (n0 + rows - 1) / per_img : 0;
+    const int staged = hi - lo + 1 < max_sets ? hi - lo + 1 : max_sets;
+    for (int i = 0; i < staged * 128; ++i) {
+      const int s = i >> 7, k = (i >> 1) & 63, g = i & 1;
+      const int src = (lo + s) * 128 + 64 * g + sjpeg::zigzag_raster(k);
+      pairs[i] = sjpeg::QPair{iq[src], ib[src]};
+    }
+    for (int t = 0; t < rows; ++t) {
+      const int b = n0 + t, g = group[b] & 1;
+      const int set = n_sets > 1 ? b / per_img : 0, k = set - lo;
+      uint32_t x[64];
+      for (int j = 0; j < 64; ++j)
+        x[j] = (uint32_t)(int32_t)samples[64 * b + j];
+      uint32_t* row = words + 64 * (int64_t)b;
+      sjpeg::fdct_zigzag(x, row);
+      // the kernel's staged LUTs are a copy of these rows
+      const uint32_t* d = dcl + 32 * set + 16 * g;
+      const uint32_t* a = acl + 512 * set + 256 * g;
+      if (k < staged) {
+        const sjpeg::PairRows q{pairs + 128 * k + g};
+        bits[b] = sjpeg::quant_emit_coded(
+            row, sjpeg::quant_coded_mask(row, q), (uint32_t)dc[b], q, d, a);
+      } else {
+        const sjpeg::RasterRows q{iq + 128 * set + 64 * g,
+                                  ib + 128 * set + 64 * g, zz};
+        bits[b] = sjpeg::quant_emit_coded(
+            row, sjpeg::quant_coded_mask(row, q), (uint32_t)dc[b], q, d, a);
+        ++raster_rows;
+      }
+    }
+  }
+  return raster_rows;
+}
+extern "C" int sample_pack_blocks(const int32_t* samples, const int32_t* dc,
+                                  const int32_t* group, const uint32_t* iq,
+                                  const uint32_t* ib, const uint32_t* dcl,
+                                  const uint32_t* acl, uint32_t* words,
+                                  int32_t* bits, int n, int per_img,
+                                  int n_sets) {
+  return sample_pack_rows(samples, dc, group, iq, ib, dcl, acl, words, bits,
+                          n, per_img, n_sets);
+}
+extern "C" int sample_pack_blocks16(const int16_t* samples,
+                                    const int32_t* dc, const int32_t* group,
+                                    const uint32_t* iq, const uint32_t* ib,
+                                    const uint32_t* dcl, const uint32_t* acl,
+                                    uint32_t* words, int32_t* bits, int n,
+                                    int per_img, int n_sets) {
+  return sample_pack_rows(samples, dc, group, iq, ib, dcl, acl, words, bits,
+                          n, per_img, n_sets);
+}
 extern "C" void encode_blocks(const int32_t* samples, const int32_t* dc,
                               const int32_t* group, const uint32_t* iq,
                               const uint32_t* ib, const uint32_t* dcl,
                               const uint32_t* acl, uint32_t* words,
                               int32_t* bits, int n) {
-  for (int b = 0; b < n; ++b) {
-    uint32_t x[64];
-    for (int k = 0; k < 64; ++k) x[k] = (uint32_t)samples[64 * b + k];
-    bits[b] = sjpeg::encode_block(x, (uint32_t)dc[b], group[b], iq, ib,
-                                  dcl, acl, words + 64 * b);
-  }
+  sample_pack_blocks(samples, dc, group, iq, ib, dcl, acl, words, bits, n,
+                     n, 1);
 }
 extern "C" void emit_blocks(const int32_t* run, const int32_t* size,
                             const int32_t* code, const int32_t* dc,
@@ -238,9 +306,10 @@ extern "C" int quant_emit_coded_blocks(const int32_t* coeffs,
     for (int p = 0; p < 64; ++p)
       row[sjpeg::zigzag_slot(p)] = (uint32_t)src[p];
     const int g = group[b] & 1;
-    bits[b] = sjpeg::quant_emit_coded(
-        row, sjpeg::quant_coded_mask(row, iqz[g], ibz[g]), (uint32_t)dc[b],
-        iqz[g], ibz[g], dcl + 16 * g, acl + 256 * g);
+    const sjpeg::ZigzagRows q{iqz[g], ibz[g]};
+    bits[b] = sjpeg::quant_emit_coded(row, sjpeg::quant_coded_mask(row, q),
+                                      (uint32_t)dc[b], q, dcl + 16 * g,
+                                      acl + 256 * g);
   }
   return source_reads;
 }
@@ -279,6 +348,11 @@ def host_core(tmp_path_factory):
                     str(d / "core.cpp")], check=True)
     so = ctypes.CDLL(str(lib))
     so.encode_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
+    so.sample_pack_blocks.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 3
+    so.sample_pack_blocks.restype = ctypes.c_int
+    so.sample_pack_blocks16.argtypes = so.sample_pack_blocks.argtypes
+    so.sample_pack_blocks16.restype = ctypes.c_int
     so.emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
     so.quant_emit_blocks.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     so.emit_coded_blocks.argtypes = so.emit_blocks.argtypes
@@ -316,9 +390,10 @@ def _emit(host_core, walk, fields, luts, n, per_img, n_sets,
 @pytest.mark.parametrize("q,lo,hi", [(75, -128, 129), (100, -128, 129),
                                      (100, -32768, 32768)])
 def test_block_core_host_build_matches_plain(host_core, q, lo, hi):
-    """The CUDA kernels' per-block arithmetic == sample_pack_plain on 2k
-    random blocks: 8-bit samples at q75 and q100, and the full int16
-    range, where the fDCT's int32 products wrap."""
+    """sample_pack's per-block arithmetic (fdct_zigzag, then the coded
+    walk over the zigzag row) == sample_pack_plain on 2k random blocks:
+    8-bit samples at q75 and q100, and the full int16 range, where the
+    fDCT's int32 products wrap."""
     n = 2048
     rng = np.random.RandomState(13)
     samples = rng.randint(lo, hi, (n, 64)).astype(np.int32)
@@ -342,6 +417,61 @@ def test_block_core_host_build_matches_plain(host_core, q, lo, hi):
                             words.ctypes.data, bits.ctypes.data, n)
     np.testing.assert_array_equal(bits, want_b.numpy())
     np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32"])
+@pytest.mark.parametrize("q", [75, 100])
+@pytest.mark.parametrize("luts", ["k3", "full"])
+@pytest.mark.parametrize("sets", ["shared", "per_image"])
+def test_sample_pack_coded_walk_host_build_matches_plain(host_core, sets,
+                                                         luts, q, dtype):
+    """sample_pack's kernel as the host compiler builds it (CTAs of 128
+    rows staging their sets' zigzag (iquant, bias) pairs and LUTs, each
+    row's fdct_zigzag, quant_coded_mask and quant_emit_coded in place) ==
+    sample_pack_plain on 3 images of 48 blocks: shared tables, or a set an
+    image (qualities q, q - 20, q - 40), where the first CTA's 128 rows
+    span all three images and the third's rows read their raster rows
+    through the zigzag table; 8-bit and full int16-range samples, int16 or
+    int32, with K.3 LUTs or LUTs of 32-bit pieces, whose full-range blocks
+    at q100 fill all 2,048 bits of their rows."""
+    n_img, per_img = 3, 48
+    n = n_img * per_img
+    rng = np.random.RandomState(23)
+    samples = rng.randint(-128, 129, (n, 64))
+    samples[1::4] //= 16                            # smooth: zero runs
+    samples[2::8, 1:] = samples[2::8, :1]           # flat
+    samples[::4] = rng.randint(-32768, 32768, (len(samples[::4]), 64))
+    samples = samples.astype(dtype)
+    dc = engine.vlc.dc_diff_codes(torch.from_numpy(
+        rng.randint(-2047, 2048, n)), n_img).numpy()
+    group = (np.arange(n) % 6 >= 4).astype(np.int32)
+    quals = [q] if sets == "shared" else [q, q - 20, q - 40]
+    arrays = [_tables(x)[1] for x in quals]
+    if luts == "full":
+        for a in arrays:
+            a[2:] = _full_luts()
+    if sets == "shared":
+        arrays = arrays[0]
+    else:
+        arrays = [np.stack([a[k] for a in arrays]) for k in range(4)]
+    t = state.tables_from_numpy(*arrays, "cpu")
+    want_w, want_b = sample_pack.sample_pack_plain(
+        torch.from_numpy(samples), torch.from_numpy(dc),
+        torch.from_numpy(group), *t)
+
+    words = np.zeros((n, 64), np.uint32)
+    bits = np.zeros(n, np.int32)
+    host = [np.ascontiguousarray(x.numpy()) for x in t]
+    fn = host_core.sample_pack_blocks16 if dtype == "int16" else \
+        host_core.sample_pack_blocks
+    raster_rows = fn(samples.ctypes.data, dc.ctypes.data, group.ctypes.data,
+                     *(a.ctypes.data for a in host), words.ctypes.data,
+                     bits.ctypes.data, n, per_img, len(quals))
+    np.testing.assert_array_equal(bits, want_b.numpy())
+    np.testing.assert_array_equal(words, want_w.numpy().view(np.uint32))
+    assert raster_rows == (0 if sets == "shared" else 128 - 2 * per_img)
+    if luts == "full" and q == 100:
+        assert bits.max() == 2048
 
 
 @functools.lru_cache(maxsize=None)

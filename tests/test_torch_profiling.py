@@ -1,7 +1,8 @@
 """The port's profiling utilities (sjpeg_tpu_torch.utils.profiling) against
-sjpeg_tpu.utils.profiling, `device_trace` on the CPU, and the trace
+sjpeg_tpu.utils.profiling, `device_trace` on the CPU, the trace
 arithmetic of chip_smoke.py's profiling phase (interval union, idle gaps,
-the CPU op a gap began in) on synthetic intervals."""
+the CPU op a gap began in) on synthetic intervals, and which traces its
+device times accept."""
 
 import json
 import time
@@ -11,6 +12,7 @@ import pytest
 
 from sjpeg_tpu.utils import profiling as jprof
 
+import chip_smoke
 from chip_smoke import (HOST_WORK, busy_us, idle_gaps, merge_spans, op_at,
                         trace_summary)
 from sjpeg_tpu_torch import engine
@@ -158,3 +160,38 @@ def test_trace_summary_on_synthetic_events():
     assert s["device_ops"] == ["Memcpy DtoH", "Memset (Device)",
                                "sample_pack_kernel"]
 
+
+
+def test_device_times_come_from_whole_traces(monkeypatch):
+    """chip_smoke's kernel_us and op_us on synthetic torch.profiler
+    summaries ({name: launches and us a call}): a kernel's time is a
+    launch's, and an op's (a zero fill and a kernel, each once a call) the
+    sum of its parts' times a launch, also from a trace that lost some
+    calls' records; a trace that misses the kernel, or in which something
+    ran twice a call, is taken again, and after the last try the result
+    is None, never 0 or a part of a call."""
+    kernel = "void (anonymous namespace)::risk_kernel(...)"
+    whole = {kernel: {"launches": 1.0, "us": 90.0},
+             "Memset (Device)": {"launches": 1.0, "us": 3.0}}
+    partial = {kernel: {"launches": 0.6, "us": 54.0},
+               "Memset (Device)": {"launches": 0.8, "us": 2.4}}
+    missed = {"Memset (Device)": {"launches": 1.0, "us": 3.0}}
+    twice = {kernel: {"launches": 1.0, "us": 90.0},
+             "Memset (Device)": {"launches": 2.0, "us": 6.0}}
+    assert chip_smoke.kernel_us(None, "risk_stats", trace=partial) == 90.0
+    assert chip_smoke.op_us(None, "risk_stats", trace=whole) == 93.0
+    assert chip_smoke.op_us(None, "risk_stats",
+                            trace=partial) == pytest.approx(93.0)
+    traces = iter([twice, whole])
+    monkeypatch.setattr(chip_smoke, "device_kernels",
+                        lambda fn, calls: next(traces))
+    assert chip_smoke.op_us(lambda: None, "risk_stats", trace=missed) == 93.0
+    traces = iter([missed, twice])
+    monkeypatch.setattr(chip_smoke, "device_kernels",
+                        lambda fn, calls: next(traces))
+    assert chip_smoke.op_us(lambda: None, "risk_stats", trace=twice) is None
+    traces = iter([missed, missed])
+    monkeypatch.setattr(chip_smoke, "device_kernels",
+                        lambda fn, calls: next(traces))
+    assert chip_smoke.kernel_us(lambda: None, "risk_stats",
+                                trace=missed) is None

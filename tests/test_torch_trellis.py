@@ -151,6 +151,8 @@ def test_wrapper_matches_jax_matrices(per_image_mats, per_image_rates):
 _HOST_SHIM = """
 #define __host__
 #define __device__
+#include <algorithm>
+#include <vector>
 #include "trellis_core.cuh"
 extern "C" long long trellis_blocks(
     const int32_t* x, const int32_t* group, const int32_t* iq,
@@ -162,10 +164,94 @@ extern "C" long long trellis_blocks(
     const int g = group[b] & 1;
     const int m = (mat_sets > 1 ? b / per_img : 0) * 128 + 64 * g;
     const int l = (lt_sets > 1 ? b / per_img : 0) * 512 + 256 * g;
-    evaluated += sjpeg::trellis_block(x + 64 * b, zz, iq + m, ib + m, qq + m,
-                                      lt + l, out + 64 * b);
+    evaluated += sjpeg::trellis_search(x + 64 * b, zz, iq + m, ib + m,
+                                       qq + m, lt + l, out + 64 * b);
   }
   return evaluated;
+}
+// As csrc/trellis.cu's op: the work pass over chunks of `chunk` rows
+// (each row's class and rank among its chunk's rows of that class, which
+// the kernel gets from a warp match and the warps' prefix; the chunks'
+// class histograms, class-major; the DC-only rows of class 0 written), the
+// class starts (a class's chunks split among `threads` threads as the
+// scan kernel splits them: rank_total over each thread's chunks, then
+// rank_starts from the earlier threads' sum), the scatter of each row of
+// class c > 0 after every heavier class's rows, then the search of those
+// rows in ranked order, CTAs of 128 rows: the sets of each CTA's first and
+// last rows' images copied as the kernel stages them, other images' read
+// in place.  info: [rows placed (class > 0), rows that read a set in
+// place, rows the work pass wrote].
+extern "C" void trellis_ranked(
+    const int32_t* x, const int32_t* group, const int32_t* iq,
+    const int32_t* ib, const int32_t* qq, const int32_t* lt, int32_t* out,
+    uint8_t* cls, int32_t* order, int* info, int n, int per_img,
+    int mat_sets, int lt_sets, int chunk, int threads) {
+  const int zz[64] = SJPEG_ZIGZAG;
+  const int nc = (n + chunk - 1) / chunk, nk = sjpeg::kTrellisClasses;
+  std::vector<int32_t> hist(nk * nc, 0), starts(nk * nc, -1), rank(n);
+  info[2] = 0;
+  for (int b = 0; b < n; ++b) {
+    const int m = (mat_sets > 1 ? b / per_img : 0) * 128 + 64 * (group[b] & 1);
+    cls[b] = (uint8_t)sjpeg::trellis_class(x + 64 * b, iq + m, ib + m);
+    rank[b] = hist[cls[b] * nc + b / chunk]++;
+    if (cls[b] == 0) {
+      alignas(16) int32_t row[64];
+      sjpeg::trellis_dc_row(x[64 * b], iq[m], ib[m], row);
+      for (int k = 0; k < 64; ++k) out[64 * b + k] = row[k];
+      ++info[2];
+    }
+  }
+  const int per = (nc + threads - 1) / threads;
+  std::vector<int64_t> total(nk, 0);
+  for (int c = 0; c < nk; ++c) {
+    const int32_t* h = hist.data() + c * nc;
+    for (int t = 0; t < threads; ++t) {
+      const int j0 = std::min(nc, t * per), j1 = std::min(nc, j0 + per);
+      const int64_t sum = sjpeg::rank_total(h, j0, j1);
+      sjpeg::rank_starts(h, j0, j1, total[c], starts.data() + c * nc);
+      total[c] += sum;
+    }
+  }
+  std::vector<int64_t> at(nk, 0);
+  for (int c = 0; c < nk; ++c)
+    for (int h = c + 1; h < nk; ++h) at[c] += total[h];
+  info[0] = (int)at[0];
+  for (int b = 0; b < n; ++b)
+    if (cls[b])
+      order[at[cls[b]] + starts[cls[b] * nc + b / chunk] + rank[b]] = b;
+  info[1] = 0;
+  for (int n0 = 0; n0 < info[0]; n0 += 128) {
+    const int rows = info[0] - n0 < 128 ? info[0] - n0 : 128;
+    const int first = order[n0] / per_img;
+    const int last = order[n0 + rows - 1] / per_img;
+    const sjpeg::TrellisSlots ms(mat_sets, first, last);
+    const sjpeg::TrellisSlots ls(lt_sets, first, last);
+    std::vector<int32_t> s_iq(256), s_ib(256), s_qq(256), s_lt(1024);
+    for (int i = 0; i < ms.count * 128; ++i) {
+      const int src = ms.set[i / 128] * 128 + i % 128;
+      s_iq[i] = iq[src];
+      s_ib[i] = ib[src];
+      s_qq[i] = qq[src];
+    }
+    for (int i = 0; i < ls.count * 512; ++i)
+      s_lt[i] = lt[ls.set[i / 512] * 512 + i % 512];
+    for (int t = 0; t < rows; ++t) {
+      const int b = order[n0 + t], g = group[b] & 1;
+      const int mset = mat_sets > 1 ? b / per_img : 0;
+      const int lset = lt_sets > 1 ? b / per_img : 0;
+      const int mk = ms.slot(mset), lk = ls.slot(lset);
+      info[1] += mk < 0 || lk < 0;
+      const int32_t* m_iq = mk >= 0 ? &s_iq[mk * 128] : iq + mset * 128;
+      const int32_t* m_ib = mk >= 0 ? &s_ib[mk * 128] : ib + mset * 128;
+      const int32_t* m_qq = mk >= 0 ? &s_qq[mk * 128] : qq + mset * 128;
+      const int32_t* l_lt = lk >= 0 ? &s_lt[lk * 512] : lt + lset * 512;
+      alignas(16) int32_t row[64];
+      for (int k = 0; k < 64; ++k) row[k] = x[64 * b + k];
+      sjpeg::trellis_search(row, zz, m_iq + 64 * g, m_ib + 64 * g,
+                            m_qq + 64 * g, l_lt + 256 * g, row);
+      for (int k = 0; k < 64; ++k) out[64 * b + k] = row[k];
+    }
+  }
 }
 """
 
@@ -185,6 +271,8 @@ def host_trellis(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     so.trellis_blocks.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
     so.trellis_blocks.restype = ctypes.c_longlong
+    so.trellis_ranked.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    so.trellis_ranked.restype = None
     return so
 
 
@@ -213,6 +301,105 @@ def test_trellis_core_host_build_matches_plain(host_trellis, mat_sets,
     np.testing.assert_array_equal(out, want.numpy())
     cinter, iq, ib, _, grp, _ = args
     assert evaluated == trellis.search_evaluations(cinter, iq, ib, grp, b)
+
+
+def _ranked(host_trellis, coeffs, group, mats, lens, per_img, chunk=256,
+            threads=256):
+    """The host build of the op, in chunks of `chunk` rows, `threads` scan
+    threads a class (the kernels' 256 and 256 by default): levels, classes,
+    order (-1 past the rows placed) and info."""
+    n = coeffs.shape[0]
+    out = np.zeros((n, 64), np.int32)
+    cls = np.zeros(n, np.uint8)
+    order = np.full(n, -1, np.int32)
+    info = np.zeros(3, np.int32)
+    host = [np.ascontiguousarray(a) for a in (coeffs, group, *mats, lens)]
+    host_trellis.trellis_ranked(
+        *(a.ctypes.data for a in host), out.ctypes.data, cls.ctypes.data,
+        order.ctypes.data, info.ctypes.data, n, per_img,
+        1 if mats[0].ndim == 2 else mats[0].shape[0],
+        1 if lens.ndim == 2 else lens.shape[0], chunk, threads)
+    return out, cls, order, info
+
+
+def _ranked_case(rng, b, per_img):
+    """b images of per_img blocks built to tie (_blocks), a fifth of them
+    all-zero and a tenth DC-only, in runs long enough to fill whole search
+    CTAs with class-0 rows."""
+    n = b * per_img
+    coeffs = _blocks(rng, n)
+    zero = rng.rand(n) < 0.2
+    zero[n // 3:n // 3 + 300] = True
+    coeffs[zero] = 0
+    coeffs[rng.rand(n) < 0.1, 1:] = 0
+    group = (np.arange(n) % 6 >= 4).astype(np.int32)
+    return coeffs, group
+
+
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("chunk,threads", [(256, 256), (16, 8)])
+def test_trellis_ranking_host_build_is_stable_heaviest_first(
+        host_trellis, chunk, threads, per_image):
+    """The op's work pass, class starts and scatter (trellis_class,
+    rank_total, rank_starts) on 3 x 700 blocks, in the kernels' chunks of
+    256 rows with 256 scan threads, or in chunks of 16 with 8 (132
+    chunks: 17 a thread, the last thread's short): each block's class is
+    its count of nonzero bias-quantized AC values (the plain quantizer's,
+    with shared or per-image matrices), and the order holds the rows of
+    classes above 0 by class, heaviest first, row order kept within a
+    class (stable, so deterministic), as many as the op says; class 0's
+    rows are not placed."""
+    rng = np.random.RandomState(36)
+    b, per_img = 3, 700
+    coeffs, group = _ranked_case(rng, b, per_img)
+    mats = _mats([30, 75, 100] if per_image else [75])
+    _, cls, order, info = _ranked(host_trellis, coeffs, group, mats,
+                                  _rates(1), per_img, chunk, threads)
+    cinter, iq, ib, _, grp = _port(coeffs, *mats, group)
+    img = torch.arange(len(coeffs)) // per_img
+    iqr, ibr = (trellis.rows_from_mats(m, grp, img) for m in (iq, ib))
+    v0 = trellis._bias_quantized(cinter.to(torch.int64).abs(), iqr, ibr)
+    want = (v0[:, 1:] > 0).sum(1).numpy()
+    np.testing.assert_array_equal(cls, want)
+    placed = int((want > 0).sum())
+    assert info[0] == placed and (want == 0).sum() >= 128
+    np.testing.assert_array_equal(
+        order[:placed], np.lexsort((np.arange(len(cls)), -want))[:placed])
+    assert (order[placed:] == -1).all()
+    assert len(set(want)) > 10
+
+
+@pytest.mark.parametrize("per_img", [700, 20])
+@pytest.mark.parametrize("mat_sets,lt_sets", [(1, 1), (3, 1), (1, 3),
+                                              (3, 3)])
+def test_trellis_ranked_search_host_build_matches_plain(host_trellis,
+                                                       mat_sets, lt_sets,
+                                                       per_img):
+    """The op as the kernels run it, built with the host compiler (work
+    pass, class starts, ranking, then trellis_search over CTAs of 128
+    ranked rows with the sets of each CTA's first and last rows' images
+    staged), scattered back to row order == trellis_quantize_plain: shared
+    or per-image matrices and rate tables, images of 700 blocks or of 20
+    (under 128, so that CTAs read sets in place), and all-zero and DC-only
+    blocks written by the work pass without a search."""
+    rng = np.random.RandomState(37)
+    b = 2100 // per_img
+    coeffs, group = _ranked_case(rng, b, per_img)
+    qual = [30, 75, 100] * (b // 3)
+    mats = _mats(qual if mat_sets > 1 else [75])
+    lens = _rates(1)
+    if lt_sets > 1:
+        lens = np.stack([_rates(3)[i % 3] for i in range(b)])
+    want = trellis.trellis_quantize_plain(
+        *_port(coeffs, *mats, group, lens), n_images=b)
+    out, _, _, info = _ranked(host_trellis, coeffs, group, mats, lens,
+                              per_img)
+    np.testing.assert_array_equal(out, want.numpy())
+    assert info[2] == len(coeffs) - info[0] >= 128   # the work pass's rows
+    if per_img == 20 and (mat_sets > 1 or lt_sets > 1):
+        assert info[1] > 0                    # sets read in place
+    if mat_sets == 1 and lt_sets == 1:
+        assert info[1] == 0
 
 
 def _coeffs(rng, mode, b, n_mcu):
