@@ -106,8 +106,9 @@ against the plain PyTorch versions on the same card:
   reads the exported Chrome trace: the device's busy time
   (the union of kernel, memcpy and memset intervals), the idle share of
   the call's host-clock window, the top device ops, the longest idle gaps
-  and the CPU op each began in (merge_spans, busy_us, idle_gaps, op_at,
-  trace_summary: plain functions the CPU tests import); the path's
+  and the CPU op each began in (benchmark/tracing.py's arithmetic), and
+  the port's spans that the trace kept (their stages also feed the
+  StageTimer, installed with `timing`); the path's
   kernels and the batch's upload must be in the trace; StageTimer's
   report through log_jsonl and back;
 - the inspector (sjpeg_tpu_torch.inspect_tool): inspector (before cli)
@@ -125,6 +126,7 @@ times), the card's name and power limit, and last
 exits non-zero; without CUDA it exits 1 before printing any result.
 """
 
+import collections
 import contextlib
 import json
 import re
@@ -2708,113 +2710,21 @@ def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
          "the C++ scan tail equals the NumPy twin on the main batch")
 
 
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-HOST_WORK = "host (no torch op)"
-NAME_CHARS = 120                # a device op's name as printed
-# after this script's earlier phases, the first device records of a trace
-# session go missing (the batch's upload and its four table copies, on an
-# H100 with torch 2.11): each traced window is preceded by this many small
-# copies and kernels for the profiler to lose
-PRIME_RECORDS = 256
-
-
-def prime_trace(dev) -> None:
-    """PRIME_RECORDS small host-to-device copies and kernels, then a
-    synchronise."""
-    host = torch.zeros(256, dtype=torch.int32)
-    for _ in range(PRIME_RECORDS):
-        host.to(dev).add_(1)
-    torch.cuda.synchronize()
-
-
-def merge_spans(spans) -> list:
-    """[(start, end)] -> their union as sorted, disjoint (start, end)
-    pairs; empty spans are dropped."""
-    out = []
-    for start, end in sorted(sp for sp in spans if sp[1] > sp[0]):
-        if out and start <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], end)
-        else:
-            out.append([start, end])
-    return [tuple(sp) for sp in out]
-
-
-def busy_us(spans, lo: float, hi: float) -> float:
-    """Length of the union of `spans` inside [lo, hi]."""
-    return sum(max(0.0, min(end, hi) - max(start, lo))
-               for start, end in merge_spans(spans))
-
-
-def idle_gaps(spans, lo: float, hi: float) -> list:
-    """The (start, end) stretches of [lo, hi] that no span covers, in
-    order: before the first span and after the last included."""
-    gaps, t = [], lo
-    for start, end in merge_spans(spans):
-        if end <= t:
-            continue
-        if start >= hi:
-            break
-        if start > t:
-            gaps.append((t, start))
-        t = end
-    if t < hi:
-        gaps.append((t, hi))
-    return gaps
-
-
-def op_at(t: float, ops) -> str:
-    """Name of the innermost CPU op of [(start, end, name)] running at t
-    (the latest start, then the shortest), or HOST_WORK when none is:
-    NumPy or C++ work outside torch."""
-    best = None
-    for start, end, name in ops:
-        if start <= t < end and (best is None or (start, best[1]) >
-                                 (best[0], end)):
-            best = (start, end, name)
-    return best[2] if best else HOST_WORK
-
-
-def trace_summary(events, lo: float, hi: float, top: int = 8,
-                  n_gaps: int = 5) -> dict:
-    """A Chrome trace's events inside the window [lo, hi] (µs): the
-    device's busy µs (the union of kernel, memcpy and memset intervals),
-    the `top` device ops by µs with their launches, the `n_gaps` longest
-    idle gaps, each with the CPU op running when it began, and every
-    device op's name."""
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in DEVICE_CATEGORIES
-           and e["ts"] < hi and e["ts"] + e["dur"] > lo]
-    ops = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-           if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
-    by_name = {}
-    for e in dev:
-        acc = by_name.setdefault(e["name"], [0.0, 0])
-        acc[0] += e["dur"]
-        acc[1] += 1
-    top_ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    gaps = sorted(idle_gaps(spans, lo, hi), key=lambda g: g[0] - g[1])
-    return {"busy_us": busy_us(spans, lo, hi),
-            "top_device_ops": [{"name": k[:NAME_CHARS], "us": v[0],
-                                "launches": v[1]} for k, v in top_ops],
-            "longest_gaps": [{"us": end - start, "at_us": start - lo,
-                              "began_in": op_at(start, ops)}
-                             for start, end in gaps[:n_gaps]],
-            "device_ops": sorted(by_name)}
-
-
 def profiling_phase(card: str, rgb: np.ndarray) -> None:
     """One traced encode_batch of the main batch with method 0 and with
     method 4 (utils/profiling.device_trace, after warm calls and
     prime_trace, inside a StageTimer stage that synchronises before it
-    ends): the device's busy µs from the exported Chrome trace, the window
-    on the host clock, the
-    idle share, the top device ops and the longest idle gaps; StageTimer's
-    report, written by log_jsonl and read back."""
+    ends, the timer installed for the port's spans): the device's busy µs
+    from the exported Chrome trace (benchmark/tracing.py's arithmetic), the
+    window on the host clock, the idle share, the top device ops, the
+    longest idle gaps and the spans the trace kept; StageTimer's report,
+    written by log_jsonl and read back."""
+    from benchmark import tracing
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels
     from sjpeg_tpu_torch.utils.profiling import (StageTimer, device_trace,
-                                                 log_jsonl)
+                                                 log_jsonl, timing,
+                                                 trace_spans)
 
     dev = torch.device(DEVICE)
     timer = StageTimer()
@@ -2829,11 +2739,12 @@ def profiling_phase(card: str, rgb: np.ndarray) -> None:
         shutil.rmtree(logdir, ignore_errors=True)
         stage = f"encode_batch_{name}"
         with device_trace(str(logdir)):
-            prime_trace(dev)
-            with timer.stage(stage, pixels), \
+            tracing.prime_trace(dev)
+            with timer.stage(stage, pixels), timing(timer), \
                     torch.profiler.record_function(stage):
                 jpegs = engine.encode_batch(rgb, param, device=dev)
                 torch.cuda.synchronize()
+        spans = collections.Counter(sp["name"] for sp in trace_spans())
         files = sorted(logdir.glob("*.pt.trace.json"))
         need(len(files) == 1, f"device_trace wrote one trace ({name})")
         events = json.loads(files[0].read_text())["traceEvents"]
@@ -2841,12 +2752,14 @@ def profiling_phase(card: str, rgb: np.ndarray) -> None:
                  and e.get("cat") == "user_annotation"]
         need(len(marks) == 1, f"the traced call's window ({name})")
         lo, hi = marks[0]["ts"], marks[0]["ts"] + marks[0]["dur"]
-        summary = trace_summary(events, lo, hi)
+        summary = tracing.trace_summary(events, lo, hi, top=8, n_gaps=5)
+        device_ops = sorted({e["name"] for e in
+                             tracing.device_events(events, lo, hi)})
         window_us = timer.times[stage] * 1e6
         share = 1.0 - summary["busy_us"] / window_us
         missing = [src for src in sources
                    if not any(nm in op for nm in global_names(src)
-                              for op in summary["device_ops"])]
+                              for op in device_ops)]
         emit("profiling", gpu=card, method=name, images=len(jpegs),
              trace=f"{logdir.name}/{files[0].name}",
              trace_bytes=files[0].stat().st_size, window_us=window_us,
@@ -2854,13 +2767,15 @@ def profiling_phase(card: str, rgb: np.ndarray) -> None:
              idle_share=share, untraced_ms=untraced_ms,
              top_device_ops=summary["top_device_ops"],
              longest_gaps=summary["longest_gaps"],
-             device_op_kinds=len(summary["device_ops"]),
+             device_op_kinds=len(device_ops), spans=dict(spans),
              path_kernels_missing=missing)
         need(0.0 <= share <= 1.0, f"the idle share is in [0, 1] ({name})")
         need(not missing, f"the {name} path's kernels are in the trace")
-        need(any(op.startswith("Memcpy HtoD") for op in
-                 summary["device_ops"]),
+        need(any(op.startswith("Memcpy HtoD") for op in device_ops),
              f"the batch's upload is in the trace's window ({name})")
+        need(all(spans[f"sjpeg.{sp}"] for sp in ("request", "upload",
+                                                 "fetch", "tail")),
+             f"the encode's spans are in the trace ({name})")
     report = timer.report()
     log = kernels.BUILD_DIR / "profiling.jsonl"
     log.unlink(missing_ok=True)

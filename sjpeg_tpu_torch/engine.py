@@ -74,6 +74,7 @@ run instead, which is how the tests hold the port against the JAX package.
 
 import collections
 import dataclasses
+import functools
 import math
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -91,6 +92,7 @@ from .ops import colorspace, fdct, huffman_device, pack, quant_pack, \
     quantize, sample_pack, stream_concat, trellis, vlc, vlc_pack
 from .ops import riskiness as risk_device
 from .params import TARGET_NONE, EncoderParam, method_flags
+from .utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,6 +102,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; the port runs on the GPU "
                            "unless the caller passes device='cpu'")
     return dev
+
+
+def _request(entry):
+    """A public entry point inside the span `sjpeg.request`; one that
+    another calls (encode_rgb -> encode_yuv) opens none of its own."""
+    @functools.wraps(entry)
+    def run(*args, **kwargs):
+        with span("request"):
+            return entry(*args, **kwargs)
+    return run
 
 
 def _is_search(param: EncoderParam) -> bool:
@@ -113,8 +125,10 @@ def auto_modes(src: torch.Tensor) -> list:
     uint8 batch on any device: the riskiness reduction where the batch
     lies, or, with the exact table active, the host scorer."""
     if riskiness.exact_table_active():
-        rgb = src.cpu().numpy()
-        return [riskiness.riskiness(im)[0] for im in rgb]
+        with span("fetch"):
+            rgb = src.cpu().numpy()
+        with span("analysis"):
+            return [riskiness.riskiness(im)[0] for im in rgb]
     return [mode for mode, _ in risk_device.batch_riskiness(src)]
 
 
@@ -129,7 +143,8 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
         np.ascontiguousarray(x))
     if t.dtype != torch.uint8:
         raise TypeError(f"expected uint8 samples, got {t.dtype}")
-    return t.to(device)
+    with span("upload"):
+        return t.to(device)
 
 
 def _slot_groups(nb_blocks, n_mcu: int, device) -> torch.Tensor:
@@ -184,6 +199,7 @@ def encode_batch_core(src, iquant, ibias, dc_luts, ac_luts, *,
     return stream_concat.stream_concat(words, bits, n_images, bucket)
 
 
+@_request
 def encode_batch(rgbs, param: Optional[EncoderParam] = None,
                  bits_per_pixel_budget: float = 4.0,
                  share_statistics: bool = False, device=None):
@@ -235,6 +251,7 @@ def _encode_rgb_batch(src: torch.Tensor, param: EncoderParam,
                              bits_per_pixel_budget, share_statistics)
 
 
+@_request
 def encode_batch_yuv(y, u, v, is_420: bool,
                      param: Optional[EncoderParam] = None,
                      bits_per_pixel_budget: float = 4.0,
@@ -250,6 +267,7 @@ def encode_batch_yuv(y, u, v, is_420: bool,
                              param, bits_per_pixel_budget, share_statistics)
 
 
+@_request
 def encode_batch_gray(y, param: Optional[EncoderParam] = None,
                       bits_per_pixel_budget: float = 4.0,
                       share_statistics: bool = False, device=None):
@@ -262,6 +280,7 @@ def encode_batch_gray(y, param: Optional[EncoderParam] = None,
                              share_statistics)
 
 
+@_request
 def encode_batch_nv12(y, uv, param: Optional[EncoderParam] = None,
                       bits_per_pixel_budget: float = 4.0,
                       share_statistics: bool = False, device=None):
@@ -273,6 +292,7 @@ def encode_batch_nv12(y, uv, param: Optional[EncoderParam] = None,
                             bits_per_pixel_budget, share_statistics, device)
 
 
+@_request
 def encode_batch_nv21(y, vu, param: Optional[EncoderParam] = None,
                       bits_per_pixel_budget: float = 4.0,
                       share_statistics: bool = False, device=None):
@@ -299,8 +319,9 @@ def _quant_arrays(qms):
 
 def _host_luts(tables):
     """HuffmanTable[4] -> ([2, 16], [2, 256]) uint32 LUTs."""
-    dc = np.stack([build_code_lut(tables[g], 16) for g in range(2)])
-    ac = np.stack([build_code_lut(tables[2 + g], 256) for g in range(2)])
+    with span("analysis"):
+        dc = np.stack([build_code_lut(tables[g], 16) for g in range(2)])
+        ac = np.stack([build_code_lut(tables[2 + g], 256) for g in range(2)])
     return dc, ac
 
 
@@ -335,18 +356,20 @@ def _encode_batch_src(src, src_kind: str, yuv_mode: int, w: int, h: int,
         src, iq, ib, dc_luts, ac_luts, yuv_mode=yuv_mode, width=w,
         height=h, nb_blocks=tuple(layout.nb_blocks), bucket=bucket,
         src_kind=src_kind, n_images=b)
-    totals_np = totals.cpu().numpy()
+    with span("fetch"):
+        totals_np = totals.cpu().numpy()
     words_np = fetch_streams_batch(words, totals_np)
 
     out = []
-    for i in range(b):
-        total_bits = int(totals_np[i])
-        if total_bits > bucket * 32:      # bucket overflow
-            out.append(_host_fallback_one(src, src_kind, i, yuv_mode, w, h,
-                                          param))
-            continue
-        scan = _finalize_scan_bytes(words_np[i], total_bits)
-        out.append(_assemble_jpeg(layout, param, qms, tables, scan))
+    with span("tail"):
+        for i in range(b):
+            total_bits = int(totals_np[i])
+            if total_bits > bucket * 32:      # bucket overflow
+                out.append(_host_fallback_one(src, src_kind, i, yuv_mode, w,
+                                              h, param))
+                continue
+            scan = _finalize_scan_bytes(words_np[i], total_bits)
+            out.append(_assemble_jpeg(layout, param, qms, tables, scan))
     return out
 
 
@@ -418,20 +441,21 @@ def _fit_quantizers(histos, param: EncoderParam, n_groups: int, b: int,
     matrices [B][2], iquant and bias rows: [2, 64] shared or [B, 2, 64]
     per image)."""
     base_qms = _quant_matrices(param)
-    hh = torch.stack(histos).cpu().numpy().astype(np.int64)
+    hh = _fetch_histos(histos)
 
     def tune(histo_pair):
         return _tuned_qms(base_qms, histo_pair, param, n_groups)
 
-    if share_statistics:
-        qms = tune(hh.reshape(2, 64, -1))
-        return [qms] * b, _quant_arrays(qms)
-    hh = hh.reshape(2, b, 64, -1)
-    # the NumPy fit releases the GIL: thread it over the images
-    with ThreadPoolExecutor(max_workers=min(8, b)) as pool:
-        per_qms = list(pool.map(lambda i: tune(hh[:, i]), range(b)))
-    arrays = [_quant_arrays(qms) for qms in per_qms]
-    return per_qms, tuple(np.stack(a) for a in zip(*arrays))
+    with span("analysis"):
+        if share_statistics:
+            qms = tune(hh.reshape(2, 64, -1))
+            return [qms] * b, _quant_arrays(qms)
+        hh = hh.reshape(2, b, 64, -1)
+        # the NumPy fit releases the GIL: thread it over the images
+        with ThreadPoolExecutor(max_workers=min(8, b)) as pool:
+            per_qms = list(pool.map(lambda i: tune(hh[:, i]), range(b)))
+        arrays = [_quant_arrays(qms) for qms in per_qms]
+        return per_qms, tuple(np.stack(a) for a in zip(*arrays))
 
 
 def _tuned_qms(qms, histo_pair, param: EncoderParam, n_groups: int):
@@ -640,8 +664,10 @@ def _stage_tables(freqs, flags, n_groups: int, b: int,
             n_groups)
         return dc_luts, ac_luts, None, huffman_device.desc_to_flat(nbs, desc)
     if flags["optimize_size"]:
-        tables = optimal_tables_from_freqs(
-            *(f.cpu().numpy().astype(np.int64) for f in freqs), n_groups)
+        with span("fetch"):
+            freqs_np = [f.cpu().numpy().astype(np.int64) for f in freqs]
+        with span("analysis"):
+            tables = optimal_tables_from_freqs(*freqs_np, n_groups)
         if n_groups == 1:
             defaults = k3_default_tables()
             tables[1], tables[3] = defaults[1], defaults[3]
@@ -719,11 +745,12 @@ def _jpegs(layout, param, per_qms, per_tables, words_np, totals_np,
     """The host tail of a batch: image i's scan (its fetched words,
     stuffed, or `repack(i)` where `overflow[i]`, a bucket overflow) in a
     JPEG with its matrices and tables."""
-    return [_assemble_jpeg(layout, param, qms, tables,
-                           repack(i) if overflow[i] else
-                           _finalize_scan_bytes(words_np[i],
-                                                int(totals_np[i])))
-            for i, (qms, tables) in enumerate(zip(per_qms, per_tables))]
+    with span("tail"):
+        return [_assemble_jpeg(layout, param, qms, tables,
+                               repack(i) if overflow[i] else
+                               _finalize_scan_bytes(words_np[i],
+                                                    int(totals_np[i])))
+                for i, (qms, tables) in enumerate(zip(per_qms, per_tables))]
 
 
 def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
@@ -768,12 +795,16 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
 
     bucket = _bucket(layout, w, h, bits_per_pixel_budget)
     words, totals = _stage_batch_pack(vlc_state, dc_luts, ac_luts, b, bucket)
-    totals_np = totals.cpu().numpy()
+    with span("fetch"):
+        totals_np = totals.cpu().numpy()
     words_np = fetch_streams_batch(words, totals_np)
     if per_tables is None:
-        flat_np = desc_flat.cpu().numpy()
-        per_tables = [huffman_device.tables_from_flat(flat_np, i, n_groups)
-                      for i in range(b)]
+        with span("fetch"):
+            flat_np = desc_flat.cpu().numpy()
+        with span("tail"):
+            per_tables = [huffman_device.tables_from_flat(flat_np, i,
+                                                          n_groups)
+                          for i in range(b)]
 
     per_img = _blocks_per_image(layout)
     return _jpegs(layout, param, per_qms, per_tables, words_np, totals_np,
@@ -806,7 +837,8 @@ def fetch_stream(words: torch.Tensor, total_bits: int) -> np.ndarray:
     """Copy to the host only the meaningful prefix of one image's stream:
     [bucket] int32 device words -> [ceil(total_bits / 32)] uint32."""
     n_words = (int(total_bits) + 31) // 32
-    return words[:n_words].contiguous().cpu().numpy().view(np.uint32)
+    with span("fetch"):
+        return words[:n_words].contiguous().cpu().numpy().view(np.uint32)
 
 
 def fetch_streams_batch(words: torch.Tensor, totals_np) -> np.ndarray:
@@ -814,7 +846,8 @@ def fetch_streams_batch(words: torch.Tensor, totals_np) -> np.ndarray:
     [B, bucket] int32 device words -> [B, ncols] uint32."""
     nmax = -(-int(totals_np.max()) // 32) if totals_np.size else 0
     ncols = max(1, min(nmax, words.shape[1]))
-    return words[:, :ncols].contiguous().cpu().numpy().view(np.uint32)
+    with span("fetch"):
+        return words[:, :ncols].contiguous().cpu().numpy().view(np.uint32)
 
 
 def _finalize_scan_bytes(words: np.ndarray, total_bits: int) -> bytes:
@@ -827,9 +860,11 @@ def _scan_bytes(words: torch.Tensor, totals: torch.Tensor) -> bytes:
     """One image's [1, bucket] device words and [1] total (within the
     bucket) -> its stuffed scan: a fetch of the total, then of the used
     words."""
-    total_bits = int(totals[0])
-    return _finalize_scan_bytes(fetch_streams_batch(
-        words, np.array([total_bits]))[0], total_bits)
+    with span("fetch"):
+        total_bits = int(totals[0])
+    words_np = fetch_streams_batch(words, np.array([total_bits]))[0]
+    with span("tail"):
+        return _finalize_scan_bytes(words_np, total_bits)
 
 
 def _assemble_jpeg(layout, param, qms, tables, scan: bytes) -> bytes:
@@ -883,7 +918,8 @@ def _fetch_histos(histos):
     int64 array (None stays None)."""
     if histos is None:
         return None
-    return torch.stack(histos).cpu().numpy().astype(np.int64)
+    with span("fetch"):
+        return torch.stack(histos).cpu().numpy().astype(np.int64)
 
 
 def _stage_pack(vlc_state, dc_luts, ac_luts):
@@ -959,16 +995,19 @@ def _encode_coeffs(coeffs, histos, layout, param: EncoderParam) -> bytes:
         return encode_search_one(coeffs, histos, layout, param)
     qms = _quant_matrices(param)
     if flags["use_adaptive_quant"]:
-        qms = _tuned_qms(qms, histos, param, n_groups)
+        with span("analysis"):
+            qms = _tuned_qms(qms, histos, param, n_groups)
     lt_lens = (state.arrays_to_device(trellis_cost_lens(),
                                       device=coeffs[0].device)[0]
                if flags["use_trellis"] else None)
     words, totals, tables = _stage_one_pass(coeffs, qms, flags, nb_blocks,
                                             n_groups, lt_lens)
-    return _assemble_jpeg(layout, param, qms, tables,
-                          _scan_bytes(words, totals))
+    with span("tail"):
+        return _assemble_jpeg(layout, param, qms, tables,
+                              _scan_bytes(words, totals))
 
 
+@_request
 def encode_rgb(rgb, param: Optional[EncoderParam] = None,
                device=None) -> bytes:
     """Encode one RGB uint8 image [H, W, 3] (numpy or torch) with any YUV
@@ -996,6 +1035,7 @@ def encode_rgb(rgb, param: Optional[EncoderParam] = None,
     return _encode_blocks_device(src, "rgb", yuv_mode, w, h, param)
 
 
+@_request
 def encode_gray(gray, param: Optional[EncoderParam] = None,
                 device=None) -> bytes:
     """Encode one grayscale uint8 image [H, W] (YUV 4:0:0)."""
@@ -1007,6 +1047,7 @@ def encode_gray(gray, param: Optional[EncoderParam] = None,
                                  C.YUV_400, w, h, param)
 
 
+@_request
 def encode_yuv(y, u, v, is_420: bool, param: Optional[EncoderParam] = None,
                device=None) -> bytes:
     """Encode one planar YUV image: y [H, W] uint8 plus chroma planes
@@ -1030,9 +1071,10 @@ def _upload(batch, device: torch.device) -> torch.Tensor:
     the copy is queued on the current stream."""
     t = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(batch))
-    if t.device.type == "cpu":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
+    with span("upload"):
+        if t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
 
 
 def encode_pipelined(batches, param: Optional[EncoderParam] = None,
@@ -1050,13 +1092,14 @@ def encode_pipelined(batches, param: Optional[EncoderParam] = None,
     local = threading.local()
 
     def work(batch):
-        if dev.type != "cuda":
-            return encode_batch(batch, param, device=dev, **kw)
-        if not hasattr(local, "stream"):
-            local.stream = torch.cuda.Stream(dev)
-        with torch.cuda.stream(local.stream):
-            return encode_batch(_upload(batch, dev), param, device=dev,
-                                **kw)
+        with span("request"):
+            if dev.type != "cuda":
+                return encode_batch(batch, param, device=dev, **kw)
+            if not hasattr(local, "stream"):
+                local.stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(local.stream):
+                return encode_batch(_upload(batch, dev), param, device=dev,
+                                    **kw)
 
     pend = collections.deque()
     with ThreadPoolExecutor(max_workers=max(depth, 1)) as pool:
@@ -1079,8 +1122,9 @@ def encode_many(images, param: Optional[EncoderParam] = None, device=None,
         groups.setdefault(tuple(img.shape), []).append(i)
     out = [None] * len(images)
     for idxs in groups.values():
-        sub = torch.stack([torch.as_tensor(images[i]) for i in idxs])
-        for i, jpeg in zip(idxs, encode_batch(sub, param, device=device,
-                                              **kw)):
+        with span("request"):
+            sub = torch.stack([torch.as_tensor(images[i]) for i in idxs])
+            jpegs = encode_batch(sub, param, device=device, **kw)
+        for i, jpeg in zip(idxs, jpegs):
             out[i] = jpeg
     return out

@@ -29,6 +29,7 @@ from .. import constants as C
 from .. import kernels
 from ..riskiness import (KRGB, NOISE_LEVEL, THRESH_GRAY, THRESH_SHARP,
                          THRESH_YUV420, _MASK_DY, _VIS_Y, _W_DU, _W_DV)
+from ..utils.profiling import span
 
 _VIS100 = tuple(int(v) for v in np.round(_VIS_Y * 100).astype(np.int64))
 _MASK100 = tuple(int(v) for v in np.round(_MASK_DY * 100).astype(np.int64))
@@ -161,7 +162,9 @@ def batch_riskiness(rgb: torch.Tensor) -> list:
     """[B, H, W, 3] uint8 on any device -> [(mode, risk%)] per image, with
     one fetch of the 3 x B reductions."""
     h, w = rgb.shape[-3:-1]
-    stats = torch.stack(risk_stats(rgb), dim=-1).reshape(-1, 3).cpu()
+    stats = torch.stack(risk_stats(rgb), dim=-1).reshape(-1, 3)
+    with span("fetch"):
+        stats = stats.cpu()
     return [finish_riskiness(*row.tolist(), w, h) for row in stats]
 
 

@@ -1,8 +1,9 @@
 """The port's profiling utilities (sjpeg_tpu_torch.utils.profiling) against
 sjpeg_tpu.utils.profiling, `device_trace` on the CPU, the trace
-arithmetic of chip_smoke.py's profiling phase (interval union, idle gaps,
-the CPU op a gap began in) on synthetic intervals, and which traces its
-device times accept."""
+arithmetic that chip_smoke.py's profiling phase and the benchmark share
+(benchmark/tracing.py: interval union, idle gaps, the CPU op a gap began
+in) on synthetic intervals, and which traces chip_smoke's device times
+accept."""
 
 import json
 import time
@@ -13,8 +14,8 @@ import pytest
 from sjpeg_tpu.utils import profiling as jprof
 
 import chip_smoke
-from chip_smoke import (HOST_WORK, busy_us, idle_gaps, merge_spans, op_at,
-                        trace_summary)
+from benchmark.tracing import (HOST_WORK, busy_us, device_events, idle_gaps,
+                               merge_spans, op_at, trace_summary)
 from sjpeg_tpu_torch import engine
 from sjpeg_tpu_torch.utils import profiling
 from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
@@ -157,8 +158,8 @@ def test_trace_summary_on_synthetic_events():
         {"us": 125, "at_us": 75, "began_in": HOST_WORK},
         {"us": 50, "at_us": 250, "began_in": HOST_WORK},
         {"us": 10, "at_us": 0, "began_in": "aten::copy_"}]
-    assert s["device_ops"] == ["Memcpy DtoH", "Memset (Device)",
-                               "sample_pack_kernel"]
+    assert sorted({e["name"] for e in device_events(events, 100, 400)}) == [
+        "Memcpy DtoH", "Memset (Device)", "sample_pack_kernel"]
 
 
 
