@@ -22,7 +22,9 @@ against the plain PyTorch versions on the same card:
   kind: ties, the rebalance, one symbol, empty, wrapping sums), m4_parity,
   m4_path, m4_cases (methods 1 and 3, shared statistics, 4:4:4, 4:0:0,
   1000 x 750, NV12, overflow re-packs, GPU vs CPU path), m4_timing,
-  m4_breakdown;
+  m4_breakdown; lambda_fit (the kernel against the host route, its
+  device time and bound, launches and host fits a request in the three
+  benchmark cells' entries);
 - method 7 (method 4 with trellis quantization), through trellis,
   merge_codesizes, vlc_pack and stream_concat.  Phases: tr_parity (the
   trellis op: a work pass, class starts, a ranking and the search; with
@@ -234,9 +236,10 @@ def plain_forced():
     script only: the package itself never falls back).  fdct, quant_pack,
     the table build and the sharp sweeps are patched on their own modules,
     which every caller reads them from."""
-    from sjpeg_tpu_torch.ops import (fdct, huffman_device, merge_codesizes,
-                                     quant_pack, sample_pack, sharp_yuv,
-                                     stream_concat, trellis, vlc_pack)
+    from sjpeg_tpu_torch.ops import (fdct, huffman_device, lambda_fit,
+                                     merge_codesizes, quant_pack,
+                                     sample_pack, sharp_yuv, stream_concat,
+                                     trellis, vlc_pack)
     from sjpeg_tpu_torch.sharp_yuv import sharp_iterate_plain
     packs = dict(
         sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
@@ -254,7 +257,9 @@ def plain_forced():
             mock.patch.object(quant_pack, "quant_pack",
                               quant_pack.quant_pack_plain), \
             mock.patch.object(sharp_yuv, "sharp_iterate",
-                              sharp_iterate_plain):
+                              sharp_iterate_plain), \
+            mock.patch.object(lambda_fit, "lambda_fit",
+                              lambda_fit.lambda_fit_plain):
         yield
 
 
@@ -268,12 +273,13 @@ def plain_tables(jobs):
 def counted_wrappers() -> dict:
     """{kernel: its wrapper}, each wrapper counting its own launches in
     `.launches`."""
-    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quant_pack,
-                                     sample_pack, stream_concat, trellis,
-                                     vlc_pack)
+    from sjpeg_tpu_torch.ops import (fdct, lambda_fit, merge_codesizes,
+                                     quant_pack, sample_pack, stream_concat,
+                                     trellis, vlc_pack)
     from sjpeg_tpu_torch.ops import riskiness as risk_dev
     from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
     return {"sharp_yuv": sharp_ops.sharp_iterate,
+            "lambda_fit": lambda_fit.lambda_fit,
             "risk_stats": risk_dev.risk_stats,
             "sample_pack": sample_pack.sample_pack,
             "fdct": fdct.fdct_blocks,
@@ -676,6 +682,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += method4_phases(card, rgb, vlc_long_err)
     torch.cuda.empty_cache()
+    rows.append(lambda_fit_phase(card, rgb))
+    torch.cuda.empty_cache()
     by_name = {r["name"]: r for r in rows}
     tr_rows, tr_table_err = trellis_phases(card, rgb)
     by_name["merge_codesizes"]["max_abs_err"] = max(
@@ -1029,8 +1037,9 @@ def method4_inputs(rgb: np.ndarray):
     src = torch.from_numpy(rgb).to(dev)
     coeffs, histos = engine._stage_batch_coeffs(src, "rgb", C.YUV_420, w, h,
                                                 True, b)
-    _, quant = engine._fit_quantizers(histos, param, 2, b, False)
-    iq, ib = state.arrays_to_device(*quant, device=dev)
+    iq, ib, _ = engine._fit_on_device(histos, param,
+                                      method_flags(param.method), 2, False,
+                                      dev)
     vlc_state, freqs = engine._stage_batch_quantize(coeffs, iq, ib, True, nb,
                                                     b, b)
     del coeffs, src
@@ -1050,7 +1059,7 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     vlc_long_err) and merge_codesizes (its error including the
     adversarial rows)."""
     from sjpeg_tpu_torch import constants as C
-    from sjpeg_tpu_torch import engine, kernels, pipeline, state
+    from sjpeg_tpu_torch import engine, kernels, pipeline
     from sjpeg_tpu_torch.ops import (huffman_device, merge_codesizes,
                                      sample_pack, stream_concat, vlc_pack)
     from sjpeg_tpu_torch.params import method_flags
@@ -1220,12 +1229,10 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     s = stage("h2d", lambda: torch.from_numpy(rgb).to(dev))
     co, hi = stage("colour_fdct_histograms", lambda: engine._stage_batch_coeffs(
         s, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH))
-    qms, qa = stage("host_fit", lambda: engine._fit_quantizers(
-        hi, param, 2, BATCH, False))
+    qa = stage("fit", lambda: engine._fit_on_device(
+        hi, param, flags, 2, False, dev))
     vs, fr = stage("quantize_interleave_stats", lambda: (
-        engine._stage_batch_quantize(
-            co, *state.arrays_to_device(*qa, device=dev), True, nb, BATCH,
-            BATCH)))
+        engine._stage_batch_quantize(co, *qa[:2], True, nb, BATCH, BATCH)))
     del co
     huffman_device.optimal_code_luts.any_reads = 0
     dl, al, _, desc = stage("tables", lambda: engine._stage_tables(
@@ -1238,9 +1245,10 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
 
     def fetch():
         tn = t_.cpu().numpy()
-        return tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy()
+        return (tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy(),
+                engine._host_matrices(qa[2], param, BATCH))
 
-    tn, wn, flat = stage("fetch", fetch)
+    tn, wn, flat, qms = stage("fetch", fetch)
     stage("host_tail", lambda: [engine._assemble_jpeg(
         layout, param, qms[i], huffman_device.tables_from_flat(flat, i, 2),
         engine._finalize_scan_bytes(wn[i], int(tn[i])))
@@ -1291,6 +1299,89 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
                    redesigned=True)]
 
 
+def lambda_fit_phase(card: str, rgb: np.ndarray) -> dict:
+    """lambda_fit on the main batch's histograms: the kernel against its
+    plain twin (the host route) per image and shared, with one and two
+    groups; its device microseconds a launch (16 images x 2 groups) beside
+    the bin sums' bound, CUDA-event ms and the host route's ms; then, in
+    the entries of the three benchmark cells (encode_batch of a 16 x 1024^2 AUTO batch of
+    four modes with the default param, encode_rgb of a 12-MP photo,
+    method 0's encode_batch), the kernel's launches and the host fits a
+    request runs.  Returns the kernels-line row."""
+    from sjpeg_tpu_torch import adaptive, engine
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch.ops import lambda_fit
+    from sjpeg_tpu_torch.params import EncoderParam
+
+    dev = torch.device(DEVICE)
+    b, h, w = rgb.shape[:3]
+    param = method4(C.YUV_420)
+    _, histos = engine._stage_batch_coeffs(torch.from_numpy(rgb).to(dev),
+                                           "rgb", C.YUV_420, w, h, True, b)
+    base = engine._quant_matrices(param)
+    args = (np.stack([base[0]["quant"], base[1]["quant"]]),
+            param.resolved_min_quant_matrices(),
+            (param.qdelta_max_luma, param.qdelta_max_chroma),
+            param.quantization_bias)
+    shared = tuple(x.sum(0, dtype=torch.int32) for x in histos)
+    errs = {}
+    for name, hh in (("per_image", histos), ("shared", shared)):
+        for n_groups in (1, 2):
+            got = lambda_fit.lambda_fit(*hh, *args, n_groups)
+            want = lambda_fit.lambda_fit_plain(*hh, *args, n_groups)
+            torch.cuda.synchronize()
+            errs[f"{name}_{n_groups}_groups"] = max_err(zip(got, want))
+
+    def fit():
+        return lambda_fit.lambda_fit(*histos, *args, 2)
+
+    device_us = kernel_us(fit, "lambda_fit")
+    ms = event_ms(fit, 20)
+    plain = host_ms(lambda: lambda_fit.lambda_fit_plain(*histos, *args, 2), 3)
+    auto, photo = four_mode_batch(1024, 4), make_rgb(1, 3024, 4032,
+                                                     SEED + 600)[0]
+    entries = {
+        "default_batch": lambda: engine.encode_batch(auto, EncoderParam(),
+                                                     device=dev),
+        "photo": lambda: engine.encode_rgb(photo, EncoderParam(),
+                                           device=dev),
+        "m0_batch": lambda: engine.encode_batch(rgb, method0(C.YUV_420),
+                                                device=dev)}
+    per_request = {}
+    for name, call in entries.items():
+        with mock.patch.object(engine, "analyse_histo",
+                               wraps=engine.analyse_histo) as tuned, \
+                mock.patch.object(adaptive, "analyse_histo",
+                                  wraps=adaptive.analyse_histo) as plain_fit:
+            call()
+            lambda_fit.lambda_fit.launches = 0
+            tuned.reset_mock()
+            plain_fit.reset_mock()
+            call()
+            per_request[name] = {
+                "lambda_fit_launches": lambda_fit.lambda_fit.launches,
+                "host_fits": tuned.call_count + plain_fit.call_count}
+    emit("lambda_fit", gpu=card, images=b, max_abs_err=errs,
+         device_us=device_us, ms=ms, plain_ms=plain,
+         per_request=per_request)
+    need(max(errs.values()) == 0,
+         "lambda_fit exact against the host route (per image and shared)")
+    need(per_request["default_batch"]["lambda_fit_launches"] == 4
+         and per_request["photo"]["lambda_fit_launches"] == 1
+         and per_request["m0_batch"]["lambda_fit_launches"] == 0
+         and all(v["host_fits"] == 0 for v in per_request.values()),
+         "one fit launch a sub-batch and no host fit in the cells' entries")
+    n_pairs = b * 2 * 64 * C.QSIZE
+    return kernel_row(
+        "lambda_fit", "csrc/lambda_fit.cu",
+        "none: adaptive.analyse_histo (host NumPy in the JAX package)",
+        per_request["default_batch"]["lambda_fit_launches"],
+        max(errs.values()), ms, plain,
+        histos[0].numel() * 4 * 2 + 3 * b * 2 * 64 * 4,
+        n_pairs * C.MAX_HISTO_DCT_COEFF * 4, device_us=device_us,
+        per_request=per_request)
+
+
 def trellis_phases(card: str, rgb: np.ndarray) -> list:
     """The method-7 path on the same batch: tr_parity, tr_path, tr_cases,
     tr_timing and tr_breakdown; returns the trellis kernel row and the
@@ -1315,10 +1406,8 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     src = torch.from_numpy(rgb).to(dev)
     coeffs, histos = engine._stage_batch_coeffs(
         src, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH)
-    per_qms, quant = engine._fit_quantizers(histos, param, 2, BATCH, False)
-    iq, ib = state.arrays_to_device(*quant, device=dev)
-    qq, lt = state.arrays_to_device(engine._clamped_quant(per_qms, False),
-                                    trellis_cost_lens(), device=dev)
+    iq, ib, qq = engine._fit_on_device(histos, param, flags, 2, False, dev)
+    (lt,) = state.arrays_to_device(trellis_cost_lens(), device=dev)
     cinter, dc, group = engine._interleave_coeffs(coeffs, iq, ib, nb, BATCH)
     del coeffs, src
     n = cinter.shape[0]
@@ -1332,11 +1421,8 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
         merge_codesizes.optimal_tables(jobs), plain_tables(jobs)))
     _, acl, _, _ = engine._stage_tables(freqs, flags, 2, BATCH, False, dev)
     lt_img = (acl & 0xFF).contiguous()
-    shared = state.arrays_to_device(*engine._quant_arrays(per_qms[0]),
-                                    engine._clamped_quant(per_qms, True),
-                                    device=dev)
     variants = {"per_image_mats": (iq, ib, qq, lt),
-                "shared_mats": (*shared, lt),
+                "shared_mats": (iq[0], ib[0], qq[0], lt),
                 "per_image_rates": (iq, ib, qq, lt_img)}
     errs = {}
     for name, (a, b, q, r) in variants.items():
@@ -1475,11 +1561,9 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     s = stage("h2d", lambda: torch.from_numpy(rgb).to(dev))
     co, hi = stage("colour_fdct_histograms", lambda: engine._stage_batch_coeffs(
         s, "rgb", C.YUV_420, WIDTH, HEIGHT, True, BATCH))
-    qms, qa = stage("host_fit", lambda: engine._fit_quantizers(
-        hi, param, 2, BATCH, False))
-    i_, b_, q_, l_ = stage("upload_tables", lambda: state.arrays_to_device(
-        *qa, engine._clamped_quant(qms, False), trellis_cost_lens(),
-        device=dev))
+    i_, b_, q_ = stage("fit", lambda: engine._fit_on_device(
+        hi, param, flags, 2, False, dev))
+    (l_,) = state.arrays_to_device(trellis_cost_lens(), device=dev)
     ci, dcc, gr = stage("trellis_prep", lambda: engine._interleave_coeffs(
         co, i_, b_, nb, BATCH))
     del co
@@ -1498,9 +1582,10 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
 
     def fetch():
         tn = t_.cpu().numpy()
-        return tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy()
+        return (tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy(),
+                engine._host_matrices(q_, param, BATCH))
 
-    tn, wn, flat = stage("fetch", fetch)
+    tn, wn, flat, qms = stage("fetch", fetch)
     stage("host_tail", lambda: [engine._assemble_jpeg(
         layout, param, qms[i], huffman_device.tables_from_flat(flat, i, 2),
         engine._finalize_scan_bytes(wn[i], int(tn[i])))
@@ -2377,16 +2462,17 @@ def sharded_phases(card: str, rgb: np.ndarray) -> dict:
     engine.encode_batch on the card; the stitch's stream_concat launch
     against its plain version; times, a stage breakdown and the kernels'
     launches of one sharded call; two processes under gloo.  Returns
-    {kernel: launches} of the method-7 call on (2, 2) (fdct, trellis,
-    merge_codesizes, vlc_pack, stream_concat), and of the AUTO batch's
+    {kernel: launches} of the method-7 call on (2, 2) (fdct, lambda_fit,
+    trellis, merge_codesizes, vlc_pack, stream_concat), and of the AUTO
+    batch's
     call for the kernels that call alone runs (sharp_yuv, risk_stats)."""
     import pickle
     import torch.multiprocessing as mp
 
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels
-    from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, stream_concat,
-                                     trellis, vlc_pack)
+    from sjpeg_tpu_torch.ops import (fdct, lambda_fit, merge_codesizes,
+                                     stream_concat, trellis, vlc_pack)
     from sjpeg_tpu_torch.ops import riskiness as risk_dev
     from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
     from sjpeg_tpu_torch.params import EncoderParam
@@ -2402,7 +2488,8 @@ def sharded_phases(card: str, rgb: np.ndarray) -> dict:
                 for i in range(dp * sp)]
         return make_mesh(dp, sp, devs)
 
-    counted = {"fdct": fdct.fdct_blocks, "trellis": trellis.trellis_quantize,
+    counted = {"fdct": fdct.fdct_blocks, "lambda_fit": lambda_fit.lambda_fit,
+               "trellis": trellis.trellis_quantize,
                "merge_codesizes": merge_codesizes.optimal_tables,
                "vlc_pack": vlc_pack.vlc_pack,
                "stream_concat": stream_concat.stream_concat,
@@ -2443,6 +2530,10 @@ def sharded_phases(card: str, rgb: np.ndarray) -> dict:
          and launches["m4_2x2"]["stream_concat"] == 2 * 2 + 2,
          "method 4 on (2, 2): a table build and a stitch a dp row, a "
          "stream_concat a stripe")
+    need(all(launches[f"m{m}_{name}"]["lambda_fit"] == (dp if m else 0)
+             for m in (0, 4, 7) for name, (dp, _) in meshes.items()),
+         "the lambda fit on the card: one launch a dp row (none for "
+         "method 0)")
 
     # ---- ragged, odd, shared, AUTO, sharp --------------------------------
     p4 = method4(C.YUV_420)
@@ -2453,9 +2544,13 @@ def sharded_phases(card: str, rgb: np.ndarray) -> dict:
     del tall
     same["odd_3_2x2"] = (api.encode_batch_sharded(rgb[:3], p4, mesh(2, 2))
                          == engine.encode_batch(rgb[:3], p4, device=dev))
-    same["shared_m4_2x2"] = (
-        api.encode_batch_sharded(rgb, p4, mesh(2, 2), share_statistics=True)
-        == engine.encode_batch(rgb, p4, share_statistics=True, device=dev))
+    got, launches["shared_m4_2x2"] = counted_run(
+        lambda: api.encode_batch_sharded(rgb, p4, mesh(2, 2),
+                                         share_statistics=True))
+    same["shared_m4_2x2"] = got == engine.encode_batch(
+        rgb, p4, share_statistics=True, device=dev)
+    need(launches["shared_m4_2x2"]["lambda_fit"] == 1,
+         "share_statistics: one lambda_fit launch for the batch")
     auto = four_mode_batch(WIDTH, BATCH // 4)
     got, launches["auto_2x2"] = counted_run(
         lambda: api.encode_batch_sharded(auto, EncoderParam(), mesh(2, 2)))

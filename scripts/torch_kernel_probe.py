@@ -103,6 +103,7 @@ from sjpeg_tpu_torch.ops import (colorspace, fdct,  # noqa: E402
                                  huffman_device, merge_codesizes, quant_pack,
                                  riskiness, sample_pack, stream_concat,
                                  trellis, vlc_pack)
+from sjpeg_tpu_torch.params import method_flags  # noqa: E402
 
 KERNELS = ("stream_concat", "vlc_pack", "sample_pack", "trellis",
            "merge_codesizes", "fdct", "quant_pack", "sharp_yuv",
@@ -149,16 +150,13 @@ def trellis_inputs(rgb, dev, quality=chip_smoke.QUALITY):
     nb = tuple(pipeline.component_layout(C.YUV_420, w, h).nb_blocks)
     coeffs, histos = engine._stage_batch_coeffs(
         torch.from_numpy(rgb).to(dev), "rgb", C.YUV_420, w, h, True, b)
-    per_qms, quant = engine._fit_quantizers(histos, param, 2, b, False)
-    iq, ib = state.arrays_to_device(*quant, device=dev)
-    qq, lt = state.arrays_to_device(engine._clamped_quant(per_qms, False),
-                                    trellis_cost_lens(), device=dev)
+    iq, ib, qq = engine._fit_on_device(histos, param,
+                                       method_flags(param.method), 2, False,
+                                       dev)
+    (lt,) = state.arrays_to_device(trellis_cost_lens(), device=dev)
     cinter, _, group = engine._interleave_coeffs(coeffs, iq, ib, nb, b)
-    shared = state.arrays_to_device(*engine._quant_arrays(per_qms[0]),
-                                    engine._clamped_quant(per_qms, True),
-                                    device=dev)
     return {"per_image_mats": (cinter, group, iq, ib, qq, lt, b),
-            "shared_mats": (cinter, group, *shared, lt, b)}
+            "shared_mats": (cinter, group, iq[0], ib[0], qq[0], lt, b)}
 
 
 def trellis_cases(rgb, dev):

@@ -4,7 +4,7 @@ It runs the encode for methods 0, 1, 3, 4 and 7 (fixed K.3 or optimal
 Huffman tables, with or without adaptive quantization, method 7 with
 trellis quantization; 4:2:0, sharp 4:2:0, 4:4:4 or 4:0:0, or YUV_AUTO,
 which picks one of them per image from its riskiness) on an NVIDIA GPU
-through nine hand-written CUDA kernels, and produces the same bytes as
+through ten hand-written CUDA kernels, and produces the same bytes as
 sjpeg_tpu: one image (`encode`, `encode_rgb`, `encode_gray`,
 `encode_yuv`), a batch (`encode_batch` and its planar, gray, NV12 and NV21
 forms), a stream of batches (`encode_pipelined`), a list of images of

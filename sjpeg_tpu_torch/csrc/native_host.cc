@@ -157,39 +157,35 @@ void sjpeg_huffman_codesizes(const uint64_t* freq, int size,
 // Adaptive-quantization node fit (adaptive.analyse_histo_nodes).
 //
 // The search tabulates the histogram-driven quant tuning for every node of
-// the bisection tree up front: B images x K candidate matrices.  This twin
-// of the float64 torch fit computes the identical doubles (same expression
-// order, same sequential accumulation the reference's scalar loops define,
-// src/enc.cc:993-1182), threaded over images.  Structure: one per-image
-// (position, dq) bin-sum table feeds all K nodes (position and delta only
-// enter the clouds through dq).
+// the bisection tree up front: B images x K candidate matrices.  The fit's
+// arithmetic is fit_core.cuh's, the core of the card's lambda_fit kernel,
+// so one C++ definition serves both (bit-identical to analyse_histo and to
+// the reference's scalar loops, src/enc.cc:993-1182); threaded over
+// images.  Structure: one per-image (position, dq) bin-sum table feeds all
+// K nodes (position and delta only enter the clouds through dq).
 // ---------------------------------------------------------------------------
 
 #include <atomic>
-#include <cfloat>
-#include <cmath>
 #include <thread>
 #include <vector>
 
+#include "fit_core.cuh"
+
 namespace {
 
-constexpr int kBins = 128;       // MAX_HISTO_DCT_COEFF
-constexpr int kQSize = 25;       // QSIZE
-constexpr int kDeltaMin = -12;   // QDELTA_MIN
-constexpr double kHLambda = 128.0;
-constexpr double kDensity = 0.5;
-constexpr double kCorrelation = 0.5;
-constexpr uint64_t kOmitted = 0x103;
+using sjpeg::kFitBins;
+using sjpeg::kFitDeltaMin;
+using sjpeg::kFitDeltas;
 
 struct DqTables {
   // exact integer (bits, err) sums-per-bin lookups over dq in [0, 255]
-  int64_t bits[256][kBins];
-  int64_t err[256][kBins];
+  int64_t bits[256][kFitBins];
+  int64_t err[256][kFitBins];
   DqTables() {
     for (int dqv = 0; dqv < 256; ++dqv) {
       const int64_t dq = dqv < 1 ? 1 : dqv;
       const int64_t idq = ((1LL << 16) + dq - 1) / dq;
-      for (int b = 0; b < kBins; ++b) {
+      for (int b = 0; b < kFitBins; ++b) {
         const int64_t v = (int64_t(b) << 2) + 2;
         const int64_t qv = (v * idq + (1 << 15)) >> 16;
         bits[dqv][b] = qv > 0 ? 64 - __builtin_clzll((uint64_t)qv) : 0;
@@ -200,10 +196,10 @@ struct DqTables {
   }
 };
 
-void AnalyseImage(const int64_t* histo /*[64][kBins]*/,
+void AnalyseImage(const int64_t* histo /*[64][kFitBins]*/,
                   const uint8_t* quants /*[K][64]*/, int K,
                   const uint8_t* min_quant, int delta_max,
-                  const double* weight /*[kQSize]*/,
+                  const double* weight /*[kFitDeltas]*/,
                   const DqTables& t, uint8_t* out /*[K][64]*/) {
   // per-position integer bin sums over every dq value (shared by all K)
   static thread_local std::vector<int64_t> hb_v, hd_v;
@@ -213,20 +209,16 @@ void AnalyseImage(const int64_t* histo /*[64][kBins]*/,
   int64_t* hd = hd_v.data();
   bool omit_img[64];
   for (int p = 0; p < 64; ++p) {
-    const int64_t* h = histo + p * kBins;
-    int last = 0;
-    int64_t total = 0;
-    for (int b = 0; b < kBins; ++b) {
-      if (h[b] > 0) last = b + 1;
-      total += h[b];
-    }
-    omit_img[p] = ((kOmitted >> p) & 1) != 0 ||
-                  (double)total < kDensity * (double)last;
+    const int64_t* h = histo + p * kFitBins;
+    int last;
+    int64_t total;
+    sjpeg::fit_density(h, &last, &total);
+    omit_img[p] = sjpeg::fit_omitted(p, last, total);
     for (int dq = 0; dq < 256; ++dq) {
       int64_t sb = 0, sd = 0;
       const int64_t* bt = t.bits[dq];
       const int64_t* et = t.err[dq];
-      for (int b = 0; b < kBins; ++b) {
+      for (int b = 0; b < kFitBins; ++b) {
         sb += h[b] * bt[b];
         sd += h[b] * et[b];
       }
@@ -237,67 +229,26 @@ void AnalyseImage(const int64_t* histo /*[64][kBins]*/,
 
   for (int k = 0; k < K; ++k) {
     const uint8_t* q = quants + k * 64;
-    float dist32[64][kQSize];
-    float size32[64][kQSize];
-    double cov_xy1[64], den_term[64];
+    int64_t bsum[64][kFitDeltas], dsum[64][kFitDeltas];
+    double cov[64], den[64];
     bool omit[64];
     for (int p = 0; p < 64; ++p) {
-      double sw = 0, sx = 0, sxx = 0;
-      double sy1 = 0, syy1 = 0, sy2 = 0, sxy1 = 0, sxy2 = 0;
-      for (int d = 0; d < kQSize; ++d) {
-        const int dq = (int)q[p] + d + kDeltaMin;
-        const bool valid = dq >= (int)min_quant[p] && dq <= 255;
+      for (int d = 0; d < kFitDeltas; ++d) {   // invalid dq: never read
+        const int dq = (int)q[p] + d + kFitDeltaMin;
         const int dqi = dq < 1 ? 1 : (dq > 255 ? 255 : dq);
-        const double bsum = (double)hb[p * 256 + dqi];
-        const double dsum = (double)hd[p * 256 + dqi];
-        dist32[p][d] = valid ? (float)dsum : FLT_MAX;
-        size32[p][d] = valid ? (float)bsum : 0.0f;
-        const double w = (valid && weight[d] > 0.0) ? weight[d] : 0.0;
-        const double x = (double)(d + kDeltaMin);
-        sw += w;
-        sx += w * x;
-        sxx += w * x * x;
-        sy1 += w * dsum;
-        syy1 += w * dsum * dsum;
-        sy2 += w * bsum;
-        sxy1 += w * dsum * x;
-        sxy2 += w * bsum * x;
+        bsum[p][d] = hb[p * 256 + dqi];
+        dsum[p][d] = hd[p * 256 + dqi];
       }
-      const double cov = sw * sxy1 - sx * sy1;
-      const bool poor = cov * cov < kCorrelation * (sw * sxx - sx * sx) *
-                                        (sw * syy1 - sy1 * sy1);
-      omit[p] = omit_img[p] || poor;
-      cov_xy1[p] = cov;
-      den_term[p] = sw * sxy2 - sx * sy2;
+      const sjpeg::FitTerms ft = sjpeg::fit_terms(bsum[p], dsum[p], q[p],
+                                                  min_quant[p], weight);
+      cov[p] = ft.cov;
+      den[p] = ft.den;
+      omit[p] = omit_img[p] || ft.poor;
     }
-    double num = 0, den = 0;
-    for (int p = 0; p < 64; ++p) {
-      num += omit[p] ? 0.0 : cov_xy1[p];
-      den += omit[p] ? 0.0 : den_term[p];
-    }
-    double lam = kHLambda;
-    if (num > 1000.0 && den < -10.0) {
-      lam = -num / den;
-      if (lam < 1.0) lam = 1.0;
-    }
-    for (int p = 0; p < 64; ++p) {
-      float cur = 0.0f;
-      int best = 0;
-      bool started = false;
-      for (int d = 0; d <= delta_max; ++d) {
-        const double dl = (double)dist32[p][d];
-        float sc = (float)(dl + lam * (double)size32[p][d]);
-        if (!(dl < (double)FLT_MAX)) sc = INFINITY;
-        if (!started || sc < cur) {
-          cur = sc;
-          best = d;
-          started = true;
-        }
-      }
-      const bool has_best = cur < FLT_MAX;
-      const int best_dq = (!omit[p] && has_best) ? best + kDeltaMin : 0;
-      out[k * 64 + p] = (uint8_t)((int)q[p] + best_dq);
-    }
+    const double lam = sjpeg::fit_lambda(cov, den, omit);
+    for (int p = 0; p < 64; ++p)
+      out[k * 64 + p] = (uint8_t)sjpeg::fit_best_quant(
+          bsum[p], dsum[p], q[p], min_quant[p], delta_max, lam, omit[p]);
   }
 }
 
@@ -315,7 +266,7 @@ void sjpeg_analyse_histo_nodes(const int64_t* histos, int B,
                                const double* weight, uint8_t* out,
                                int n_threads) {
   static const DqTables tables;
-  const int delta_max = qdelta_max - kDeltaMin;
+  const int delta_max = qdelta_max - kFitDeltaMin;
   if (n_threads < 1) n_threads = 1;
   if (n_threads > B) n_threads = B;
   std::vector<std::thread> threads;
@@ -324,7 +275,7 @@ void sjpeg_analyse_histo_nodes(const int64_t* histos, int B,
     for (;;) {
       const int i = next.fetch_add(1);
       if (i >= B) return;
-      AnalyseImage(histos + (size_t)i * 64 * kBins, quants, K, min_quant,
+      AnalyseImage(histos + (size_t)i * 64 * kFitBins, quants, K, min_quant,
                    delta_max, weight, tables, out + (size_t)i * K * 64);
     }
   };

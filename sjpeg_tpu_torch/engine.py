@@ -16,7 +16,7 @@ JAX engine stages them off the relay (`_encode_batch_optimized`):
 
   colour + fDCT + coefficient histograms  _stage_batch_coeffs, ops/fdct
                                                            [CUDA kernel 6]
-  lambda fit per image and table group    adaptive.analyse_histo [host]
+  lambda fit per image and table group    ops/lambda_fit   [CUDA kernel 9]
   quantize + MCU interleave + VLC fields
     + DC chain + symbol frequencies       _stage_batch_quantize [torch]
   or, method 7:
@@ -88,8 +88,8 @@ from . import headers, native, pipeline, riskiness, sharp_yuv, spec, state
 from .adaptive import analyse_histo
 from .huffman import (build_code_lut, k3_default_tables,
                       optimal_tables_from_freqs, trellis_cost_lens)
-from .ops import colorspace, fdct, huffman_device, pack, quant_pack, \
-    quantize, sample_pack, stream_concat, trellis, vlc, vlc_pack
+from .ops import colorspace, fdct, huffman_device, lambda_fit, pack, \
+    quant_pack, quantize, sample_pack, stream_concat, trellis, vlc, vlc_pack
 from .ops import riskiness as risk_device
 from .params import TARGET_NONE, EncoderParam, method_flags
 from .utils.profiling import span
@@ -434,34 +434,11 @@ def _coeff_histos(coeffs, n_images: int):
     return histo_l, histo_c
 
 
-def _fit_quantizers(histos, param: EncoderParam, n_groups: int, b: int,
-                    share_statistics: bool):
-    """One fetch of the histograms, then the host lambda fit per image (or
-    once for the batch) and table group -> (per-image finalized quant
-    matrices [B][2], iquant and bias rows: [2, 64] shared or [B, 2, 64]
-    per image)."""
-    base_qms = _quant_matrices(param)
-    hh = _fetch_histos(histos)
-
-    def tune(histo_pair):
-        return _tuned_qms(base_qms, histo_pair, param, n_groups)
-
-    with span("analysis"):
-        if share_statistics:
-            qms = tune(hh.reshape(2, 64, -1))
-            return [qms] * b, _quant_arrays(qms)
-        hh = hh.reshape(2, b, 64, -1)
-        # the NumPy fit releases the GIL: thread it over the images
-        with ThreadPoolExecutor(max_workers=min(8, b)) as pool:
-            per_qms = list(pool.map(lambda i: tune(hh[:, i]), range(b)))
-        arrays = [_quant_arrays(qms) for qms in per_qms]
-        return per_qms, tuple(np.stack(a) for a in zip(*arrays))
-
-
 def _tuned_qms(qms, histo_pair, param: EncoderParam, n_groups: int):
     """Finalized (luma, chroma) matrices -> the same after the host lambda
     fit of each table group, chroma first as the reference runs it, over
-    the group's [64, bins] histogram."""
+    the group's [64, bins] histogram (the batched search's per-image
+    fits)."""
     min_qmats = param.resolved_min_quant_matrices()
     qms = list(qms)
     for g in range(n_groups - 1, -1, -1):
@@ -558,14 +535,6 @@ def _stage_batch_quantize(coeffs, iquant, ibias, with_stats: bool,
         return (rl, dc_codes, group), None
     return (rl, dc_codes, group), _grouped_stats(rl, dc_codes, group,
                                                  stats_images, valid)
-
-
-def _clamped_quant(per_qms, shared: bool) -> np.ndarray:
-    """The clamped quant matrices the trellis's lambda and distortion read:
-    [2, 64] shared, or [B, 2, 64] per image."""
-    if shared:
-        return np.stack([per_qms[0][0]["quant"], per_qms[0][1]["quant"]])
-    return np.stack([[q["quant"] for q in qms] for qms in per_qms])
 
 
 def _interleave_coeffs(coeffs, iquant, ibias, nb_blocks, n_images: int = 1,
@@ -721,23 +690,46 @@ def _repack_image(state_i, dc_luts, ac_luts, i: int) -> bytes:
                                           n * pack.WORDS_PER_BLOCK))
 
 
-def _fit(histos, param: EncoderParam, flags, n_groups: int, b: int,
-         share_statistics: bool):
-    """The quantizers of a batch: (per-image matrices [B][2], host arrays
-    iquant and ibias, then for the trellis the clamped quant matrices and
-    the AC code lengths of its rate model), each [2, ...] shared or
-    [B, 2, ...] per image.  `histos` feed the adaptive fit; methods
-    without it take the param's matrices."""
-    if flags["use_adaptive_quant"]:
-        per_qms, quant = _fit_quantizers(histos, param, n_groups, b,
-                                         share_statistics)
+def _fit_on_device(histos, param: EncoderParam, flags, n_groups: int,
+                   shared: bool, device, qms=None):
+    """A batch's quantizer rows on `device`, int32 [2, 64] shared or
+    [B, 2, 64] per image: (iquant, bias, quant), the finalized rows of
+    `qms` (the param's matrices by default), with adaptive quantization
+    after the lambda fit of each image (or of the batch) and table group.
+    The fit runs where the histograms are: one lambda_fit launch on a CUDA
+    device, whose rows stay there; its host twin lambda_fit_plain
+    otherwise.  The quant rows are the trellis's clamped matrices, and
+    `_host_matrices` reads them for the headers."""
+    qms = _quant_matrices(param) if qms is None else qms
+    quant = np.stack([qms[0]["quant"], qms[1]["quant"]]).astype(np.int32)
+    if not flags["use_adaptive_quant"]:
+        return state.arrays_to_device(*_quant_arrays(qms), quant,
+                                      device=device)
+    args = (quant, param.resolved_min_quant_matrices(),
+            (param.qdelta_max_luma, param.qdelta_max_chroma),
+            param.quantization_bias, n_groups)
+    if histos[0].device.type == "cuda":
+        rows = lambda_fit.lambda_fit(*histos, *args)
     else:
-        per_qms = [_quant_matrices(param)] * b
-        quant = _quant_arrays(per_qms[0])
-    if flags["use_trellis"]:          # methods 7 and 8 fit adaptively
-        quant += (_clamped_quant(per_qms, share_statistics),
-                  trellis_cost_lens())
-    return per_qms, quant
+        with span("analysis"):
+            rows = lambda_fit.lambda_fit_plain(*histos, *args)
+    return tuple((r[0] if shared else r).to(device) for r in rows)
+
+
+def _host_matrices(quant, param: EncoderParam, b: int) -> list:
+    """The per-image finalized matrices [B][2] for the headers, from the
+    quant rows of `_fit_on_device` ([B, 2, 64], or [2, 64] shared by the
+    b images): one fetch and the same finalize.  Read after a fetch that
+    waited for the card, so that this one waits for nothing."""
+    with span("fetch"):
+        rows = quant.cpu().numpy()
+    fin = spec.finalize_quant_matrix(rows,
+                                     param.resolved_min_quant_matrices(),
+                                     param.quantization_bias)
+    if rows.ndim == 2:                              # shared
+        return [[{k: v[g] for k, v in fin.items()} for g in range(2)]] * b
+    return [[{k: v[i, g] for k, v in fin.items()} for g in range(2)]
+            for i in range(rows.shape[0])]
 
 
 def _jpegs(layout, param, per_qms, per_tables, words_np, totals_np,
@@ -764,9 +756,11 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
     optimal Huffman tables, byte-identical to per-image encodes
     (src/enc.cc:1517-1580).  share_statistics=True derives one table set
     and one tuned matrix pair from the whole batch's statistics.  Host
-    traffic: one fetch of the histograms (adaptive), of the frequencies
-    (shared optimal tables), of the totals, of the used word columns and
-    of the [B, 604] DHT description (per-image tables)."""
+    traffic: one fetch of the frequencies (shared optimal tables), of the
+    totals, of the used word columns, of the [B, 604] DHT description
+    (per-image tables) and of the quant rows for the headers (the lambda
+    fit runs on the card, or, for host histograms, on the host after one
+    fetch of them)."""
     flags = method_flags(param.method)
     b = src.shape[0] if src_kind == "rgb" else src[0].shape[0]
     device = src.device if src_kind == "rgb" else src[0].device
@@ -778,12 +772,12 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
     coeffs, histos = _stage_batch_coeffs(
         src, src_kind, yuv_mode, w, h, flags["use_adaptive_quant"],
         stats_images)
-    per_qms, quant = _fit(histos, param, flags, n_groups, b,
-                          share_statistics)
-    iq, ib, *trellis_arrays = state.arrays_to_device(*quant, device=device)
+    iq, ib, quant = _fit_on_device(histos, param, flags, n_groups,
+                                   share_statistics, device)
     if flags["use_trellis"]:
+        (lens,) = state.arrays_to_device(trellis_cost_lens(), device=device)
         vlc_state, freqs = _stage_quantize_trellis(
-            coeffs, iq, ib, *trellis_arrays, flags["optimize_size"],
+            coeffs, iq, ib, quant, lens, flags["optimize_size"],
             nb_blocks, b, stats_images)
     else:
         vlc_state, freqs = _stage_batch_quantize(
@@ -807,7 +801,8 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
                           for i in range(b)]
 
     per_img = _blocks_per_image(layout)
-    return _jpegs(layout, param, per_qms, per_tables, words_np, totals_np,
+    return _jpegs(layout, param, _host_matrices(quant, param, b),
+                  per_tables, words_np, totals_np,
                   totals_np > bucket * 32,
                   lambda i: _repack_one(vlc_state, dc_luts, ac_luts, i,
                                         per_img))
@@ -903,25 +898,6 @@ def _encode_each_with_hook(src, src_kind: str, yuv_mode: int,
             for y, u, v in zip(*src)]
 
 
-def _stage_coeffs(src, src_kind: str, yuv_mode: int, width: int,
-                  height: int, with_histo: bool):
-    """One image (a batch of one) -> per-component [N_c, 64] coefficients
-    and, with_histo, one fetch of its (luma, chroma) histograms as a
-    [2, 64, bins] int64 array."""
-    coeffs, histos = _stage_batch_coeffs(src, src_kind, yuv_mode, width,
-                                         height, with_histo, 1)
-    return coeffs, _fetch_histos(histos)
-
-
-def _fetch_histos(histos):
-    """One image's (luma, chroma) histograms -> one fetch, a [2, 64, bins]
-    int64 array (None stays None)."""
-    if histos is None:
-        return None
-    with span("fetch"):
-        return torch.stack(histos).cpu().numpy().astype(np.int64)
-
-
 def _stage_pack(vlc_state, dc_luts, ac_luts):
     """One image's VLC fields + [2, ...] LUTs -> ([1, bucket] words, [1]
     total): vlc_pack, then stream_concat with the bucket at the image's
@@ -943,23 +919,23 @@ def _stage_quant_pack(coeffs, iquant, ibias, dc_luts, ac_luts, nb_blocks):
                                        cinter.shape[0] * pack.WORDS_PER_BLOCK)
 
 
-def _stage_one_pass(coeffs, qms, flags, nb_blocks, n_groups: int, lt_lens):
-    """One image at fixed finalized matrices `qms`, with K.3 tables or the
-    optimal tables of its own statistics; method 7 quantizes through the
-    trellis with the [2, 256] rate lengths lt_lens.  -> ([1, bucket] words,
-    [1] total, the four HuffmanTables)."""
+def _stage_one_pass(coeffs, rows, flags, nb_blocks, n_groups: int,
+                    lt_lens):
+    """One image at the quantizer rows of `_fit_on_device` (iquant, bias,
+    quant: [2, 64] int32 on its device), with K.3 tables or the optimal
+    tables of its own statistics; method 7 quantizes through the trellis
+    with the [2, 256] rate lengths lt_lens.  -> ([1, bucket] words, [1]
+    total, the four HuffmanTables)."""
     device = coeffs[0].device
-    iq, ib = state.arrays_to_device(*_quant_arrays(qms), device=device)
+    iq, ib, quant = rows
     if not flags["optimize_size"]:           # methods 0 and 3
         tables = k3_default_tables()
         dcl, acl = state.arrays_to_device(*_host_luts(tables), device=device)
         return (*_stage_quant_pack(coeffs, iq, ib, dcl, acl, nb_blocks),
                 tables)
     if flags["use_trellis"]:
-        (qq,) = state.arrays_to_device(_clamped_quant([qms], True),
-                                       device=device)
         vlc_state, freqs = _stage_quantize_trellis(
-            coeffs, iq, ib, qq, lt_lens, True, nb_blocks, 1, 1)
+            coeffs, iq, ib, quant, lt_lens, True, nb_blocks, 1, 1)
     else:
         vlc_state, freqs = _stage_batch_quantize(coeffs, iq, ib, True,
                                                  nb_blocks, 1, 1)
@@ -974,37 +950,37 @@ def _encode_blocks_device(src, src_kind: str, yuv_mode: int, w: int, h: int,
     and 7) of a source on its device: `_encode_coeffs` over its
     coefficients."""
     flags = method_flags(param.method)
-    coeffs, histos = _stage_coeffs(src, src_kind, yuv_mode, w, h,
-                                   flags["use_adaptive_quant"])
+    coeffs, histos = _stage_batch_coeffs(src, src_kind, yuv_mode, w, h,
+                                         flags["use_adaptive_quant"])
     return _encode_coeffs(coeffs, histos,
                           pipeline.component_layout(yuv_mode, w, h), param)
 
 
 def _encode_coeffs(coeffs, histos, layout, param: EncoderParam) -> bytes:
     """One image's per-component coefficients (and, with adaptive
-    quantization, its fetched [2, 64, bins] histograms) -> JPEG: one pass
-    (`_stage_one_pass`: quant_pack for methods 0 and 3, vlc_pack after the
-    quantize or the trellis for 1, 4 and 7); passes > 1 runs the
-    single-image search, whether or not a target is set, as the JAX
-    engine's `_encode_blocks_device` does."""
+    quantization, its (luma, chroma) [64, bins] histograms, where the
+    coefficients are) -> JPEG: one pass (`_stage_one_pass`: quant_pack for
+    methods 0 and 3, vlc_pack after the quantize or the trellis for 1, 4
+    and 7) at the rows of `_fit_on_device`, fitted on the card for a CUDA
+    device; passes > 1 runs the single-image search, whether or not a
+    target is set, as the JAX engine's `_encode_blocks_device` does."""
     flags = method_flags(param.method)
     nb_blocks = tuple(layout.nb_blocks)
     n_groups = 2 if layout.nb_comps > 1 else 1
     if param.passes > 1:
         from .engine_search import encode_search_one
         return encode_search_one(coeffs, histos, layout, param)
-    qms = _quant_matrices(param)
-    if flags["use_adaptive_quant"]:
-        with span("analysis"):
-            qms = _tuned_qms(qms, histos, param, n_groups)
-    lt_lens = (state.arrays_to_device(trellis_cost_lens(),
-                                      device=coeffs[0].device)[0]
+    device = coeffs[0].device
+    rows = _fit_on_device(histos, param, flags, n_groups, True, device)
+    lt_lens = (state.arrays_to_device(trellis_cost_lens(), device=device)[0]
                if flags["use_trellis"] else None)
-    words, totals, tables = _stage_one_pass(coeffs, qms, flags, nb_blocks,
+    words, totals, tables = _stage_one_pass(coeffs, rows, flags, nb_blocks,
                                             n_groups, lt_lens)
     with span("tail"):
-        return _assemble_jpeg(layout, param, qms, tables,
-                              _scan_bytes(words, totals))
+        scan = _scan_bytes(words, totals)
+        return _assemble_jpeg(layout, param,
+                              _host_matrices(rows[2], param, 1)[0], tables,
+                              scan)
 
 
 @_request

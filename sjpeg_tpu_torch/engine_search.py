@@ -740,8 +740,11 @@ def encode_search_one(coeffs, histos, layout, param: EncoderParam) -> bytes:
     InitCodes(true) in StoreRunLevels, src/dichotomy.cc:83-85, 144).  A
     PSNR pass computes the exact squared error alone.  The final pass runs
     at the best matrices unless the best pass was the last size pass,
-    whose streams are kept.  histos: the fetched [2, 64, bins] histograms
-    with adaptive quantization, else None."""
+    whose streams are kept.  histos: the (luma, chroma) [64, bins]
+    histograms with adaptive quantization, where the coefficients are, else
+    None: each pass fits its matrices there (`engine._fit_on_device`, one
+    lambda_fit launch a pass on the card), and the host reads the best
+    pass's tuned matrices once, at the end."""
     flags = method_flags(param.method)
     dev = coeffs[0].device
     optimize = flags["optimize_size"]
@@ -759,30 +762,26 @@ def encode_search_one(coeffs, histos, layout, param: EncoderParam) -> bytes:
     cost_lens = (state.arrays_to_device(trellis_cost_lens(), device=dev)[0]
                  if flags["use_trellis"] else None)
 
-    def make_qms():
+    def pass_rows():
         # next_matrices() once per table, as the JAX engine calls it
         qmats = [hook.next_matrices()[c] for c in range(2)]
         qms = [spec.finalize_quant_matrix(qmats[g], min_qmats[g],
                                           param.quantization_bias)
                for g in range(2)]
-        if flags["use_adaptive_quant"]:
-            qms = engine._tuned_qms(qms, histos, param, n_groups)
-        return qms
+        return engine._fit_on_device(histos, param, flags, n_groups, True,
+                                     dev, qms)
 
     best = best_q = best_result = 0.0
     last_is_best = False
-    opt_quants = kept = None
+    best_rows = kept = None
     for p in range(min(max(param.passes, 1), 20)):
         hook.pass_count = p
-        qms = make_qms()
-        iq, ib = state.arrays_to_device(*engine._quant_arrays(qms),
-                                        device=dev)
+        rows = pass_rows()
+        iq, ib, quant = rows
         if hook.for_size and optimize:
             if flags["use_trellis"]:
-                (qq,) = state.arrays_to_device(
-                    engine._clamped_quant([qms], True), device=dev)
                 vlc_state, freqs = engine._stage_quantize_trellis(
-                    coeffs, iq, ib, qq, cost_lens, True, nb_blocks, 1, 1)
+                    coeffs, iq, ib, quant, cost_lens, True, nb_blocks, 1, 1)
             else:
                 vlc_state, freqs = engine._stage_batch_quantize(
                     coeffs, iq, ib, True, nb_blocks, 1, 1)
@@ -794,44 +793,40 @@ def encode_search_one(coeffs, histos, layout, param: EncoderParam) -> bytes:
             words, totals = engine._stage_pack(vlc_state, dcl[0], acl[0])
             ev = _stage_eval_size_nbs(words, totals, nbs)[:, 0].cpu().numpy()
             hdr = header_size_bits_nbsyms(param, layout.nb_comps, ev[2:6])
-            kept = (words, totals, huffman_device.desc_to_flat(nbs, desc),
-                    qms)
+            kept = (words, totals, huffman_device.desc_to_flat(nbs, desc))
         elif hook.for_size:
             words, totals = engine._stage_quant_pack(coeffs, iq, ib, dcl_def,
                                                      acl_def, nb_blocks)
             ev = _stage_eval_size_batch(words, totals)[:, 0].cpu().numpy()
             hdr = header_size_bits(param, layout.nb_comps, defaults)
-            kept = (words, totals, None, qms)
+            kept = (words, totals, None)
         if hook.for_size:
             result = float(np.float32((hdr + int(ev[0]) + 8 * int(ev[1]))
                                       / 8.0))
         else:
-            (quant,) = state.arrays_to_device(
-                np.stack([qms[0]["quant"], qms[1]["quant"]]), device=dev)
             err = int(_batch_qerr(coeffs, iq[None], ib[None], quant[None],
                                   1)[0])
             result = get_psnr(err, 64 * n_blocks)
         last_is_best = p == 0 or abs(result - hook.target) < best
         if last_is_best:
-            opt_quants = [qms[0]["quant"].copy(), qms[1]["quant"].copy()]
+            best_rows = rows
             best = abs(result - hook.target)
             best_q = hook.q
             best_result = result
         if hook.update(result):
             break
 
-    qms = [spec.finalize_quant_matrix(opt_quants[g], min_qmats[g],
-                                      param.quantization_bias)
-           for g in range(2)]
     hook.q = best_q
     hook.value = best_result
     if not hook.for_size or not last_is_best:
         words, totals, tables = engine._stage_one_pass(
-            coeffs, qms, flags, nb_blocks, n_groups, cost_lens)
+            coeffs, best_rows, flags, nb_blocks, n_groups, cost_lens)
     else:
-        words, totals, flat, qms = kept
+        words, totals, flat = kept
         tables = (defaults if flat is None else
                   huffman_device.tables_from_flat(flat.cpu().numpy(), 0,
                                                   n_groups))
-    return engine._assemble_jpeg(layout, param, qms, tables,
-                                 engine._scan_bytes(words, totals))
+    scan = engine._scan_bytes(words, totals)
+    return engine._assemble_jpeg(
+        layout, param, engine._host_matrices(best_rows[2], param, 1)[0],
+        tables, scan)

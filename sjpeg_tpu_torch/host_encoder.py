@@ -31,8 +31,7 @@ def encode_components(comp_blocks, layout,
               for b in comp_blocks]
     coeffs, histos = engine._block_coeffs(
         blocks, method_flags(param.method)["use_adaptive_quant"])
-    return engine._encode_coeffs(coeffs, engine._fetch_histos(histos),
-                                 layout, param)
+    return engine._encode_coeffs(coeffs, histos, layout, param)
 
 
 def encode_rgb(rgb: np.ndarray, param: Optional[EncoderParam] = None) -> bytes:

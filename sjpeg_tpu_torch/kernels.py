@@ -25,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 HOST_SOURCE = CSRC / "native_host.cc"
+HOST_HEADERS = [CSRC / "fit_core.cuh"]        # what native_host.cc includes
 GXX = "g++"
 # no -march: the node fit's float64 bits must not depend on the host's ISA
 GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
@@ -93,7 +94,8 @@ def _tmp_path(target: Path) -> Path:
 
 def host_library_path() -> Path:
     h = hashlib.sha1(" ".join(GXX_FLAGS).encode())
-    h.update(HOST_SOURCE.read_bytes())
+    for p in HOST_HEADERS + [HOST_SOURCE]:
+        h.update(p.read_bytes())
     return BUILD_DIR / f"libsjpeg_host-{h.hexdigest()[:12]}.so"
 
 

@@ -8,8 +8,10 @@ Its stages are the one-device engine's staged stages run once a stripe, on
 the stripe's device, with the engine's kernels:
 
   1. colour + fDCT per stripe (the fdct kernel) + per-image coefficient
-     histograms, summed over sp on the dp row's lead device  -> host
-     lambda fit (one fetch a dp row)
+     histograms, summed over sp on the dp row's lead device  -> the
+     lambda fit where the sums are (one lambda_fit launch a dp row on a
+     card, or one on the lead device for the batch with share_statistics;
+     the host fit for host devices), its rows kept on the lead devices
   2. quantize (or the trellis kernel, method 7) + run/levels; the DC
      chains carry across stripes: each stripe hands its last quantized DC
      of each image and component to the next stripe's device; per-image
@@ -229,6 +231,7 @@ class _Sharded:
         layout = self.geo.layout
         self.nb_blocks = tuple(layout.nb_blocks)
         self.n_groups = 2 if layout.nb_comps > 1 else 1
+        self.fitted = None
         self.out = []
 
     def stages(self):
@@ -292,26 +295,43 @@ class _Sharded:
                 self.histos.append(torch.stack([_psum(hl, row[0]),
                                                 _psum(hc, row[0])]))
 
-    # ---- the host lambda fit --------------------------------------------
+    # ---- the lambda fit, where the sums are -------------------------------
     def fit(self):
-        b_real = self.b_real
-        pad = self.b_l * self.mesh.dp_local - b_real
-        hh = None
-        if self.flags["use_adaptive_quant"]:
-            # one fetch a dp row; padding images never count
-            hh = torch.cat([t.cpu() for t in self.histos], dim=1)[:, :b_real]
-            hh = (hh[0].sum(0), hh[1].sum(0)) if self.share else tuple(hh)
-            del self.histos
-        per_qms, quant = engine._fit(hh, self.param, self.flags,
-                                     self.n_groups, b_real, self.share)
-        self.per_qms = per_qms + per_qms[:1] * pad
-        self.quant = tuple(np.concatenate([a, np.repeat(a[:1], pad, 0)])
-                           if a.ndim == 3 else a for a in quant)
-        # the quantizers of each dp row on its lead device, uploaded here so
-        # that the quantize stage's loop never waits on a pageable upload
-        self.row_arrays = [state.arrays_to_device(
-            *(a[self._images(r)] if a.ndim == 3 else a for a in self.quant),
-            device=self.mesh.lead(r)) for r in range(self.mesh.dp_local)]
+        """Each dp row's quantizer rows on its lead device (iquant, bias,
+        quant, and for the trellis its rate lengths): one fit a dp row of
+        its images' sums, or, with share_statistics or without adaptive
+        quantization, one on the lead device that every row takes.  The
+        quant rows (`fitted`) are read for the headers in the tail.
+        Padding images are copies of image 0; their rows are never read."""
+        mesh = self.mesh
+        if self.flags["use_adaptive_quant"] and not self.share:
+            fits = [engine._fit_on_device(tuple(t), self.param, self.flags,
+                                          self.n_groups, False, mesh.lead(r))
+                    for r, t in enumerate(self.histos)]
+        else:
+            fits = [engine._fit_on_device(
+                self._batch_histos(), self.param, self.flags, self.n_groups,
+                True, mesh.lead())]
+        del self.histos
+        self.fitted = [rows[2] for rows in fits]
+        self.row_arrays = []
+        for r in range(mesh.dp_local):
+            lead = mesh.lead(r)
+            rows = [a.to(lead) for a in fits[r % len(fits)]]
+            if self.flags["use_trellis"]:
+                rows += state.arrays_to_device(trellis_cost_lens(),
+                                               device=lead)
+            self.row_arrays.append(rows)
+
+    def _batch_histos(self):
+        """The real images' summed (luma, chroma) histograms on the lead
+        device, or None without adaptive quantization."""
+        if not self.flags["use_adaptive_quant"]:
+            return None
+        sums = [t[:, :max(0, self.b_real - r * self.b_l)].sum(
+            1, dtype=torch.int32) for r, t in enumerate(self.histos)]
+        total = _psum(sums, self.mesh.lead())
+        return total[0], total[1]
 
     # ---- stage 2: quantize (or the trellis) + DC chains (+ frequencies) -
     def quantize(self):
@@ -421,6 +441,10 @@ class _Sharded:
     # ---- host tail: stuffing, markers; overflowing images re-packed -------
     def tail(self):
         n = self.b_real
+        if self.fitted is not None:    # read after the totals' fetch
+            self.per_qms = [
+                m for q in self.fitted for m in engine._host_matrices(
+                    q, self.param, self.b_l * self.mesh.dp_local)]
         self.out = engine._jpegs(
             self.geo.layout, self.param, self.per_qms[:n],
             self.host_tables[:n], self.words, self.totals, self.overflow,

@@ -218,10 +218,11 @@ def test_stage_intermediates_match_jax(trellis):
         2, 64, -1))
     run.fit()
     run.quantize()
-    iq, ib = (jnp.asarray(a) for a in run.quant[:2])
+    quant = [jnp.asarray(a.numpy()) for a in run.row_arrays[0]]
+    iq, ib = quant[:2]
     if trellis:
         (jrl, jdc, jgrp), (jfdc, jfac) = jengine._stage_quantize_trellis(
-            jco, iq, ib, jnp.asarray(run.quant[2]),
+            jco, iq, ib, quant[2],
             jengine._trellis_cost_lens(), True, (4, 1, 1), 2,
             per_image_stats=True)
     else:
