@@ -1,6 +1,7 @@
 """The readings that a cell's limits are set from, on the card:
 
-    python3 benchmark/control.py --workload <name> --seeds <n> [<n> ...]
+    python3 benchmark/control.py --workload <name> --seeds <n> [<n> ...] \
+        [--spec <BENCHMARK.json>]
 
 For each seed: the cell's pool, drawn as a run draws it; the program's
 outputs through the cell's entry, one request for each input; the plain
@@ -9,7 +10,10 @@ fDCT swapped for a float32 DCT (the configuration's guarantee is sjpeg's
 bytes, and a float transform is the step that would tempt a faster
 encoder).  Prints one JSON line a seed with the numbers that a run
 compares, for the program and for the control, then the lowest and
-highest of each over the seeds.  Exits non-zero without a card."""
+highest of each over the seeds.  `--spec` reads the cell from another
+BENCHMARK.json (its configuration files beside it), with this folder's
+traffic, entries and generators: a cell tried before it is added.  Exits
+non-zero without a card."""
 
 import argparse
 import json
@@ -46,6 +50,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--spec", type=Path, default=None)
     args = ap.parse_args(argv)
     os.environ.pop("SJPEG_EXACT_RISKINESS", None)
     sys.path[0] = str(ROOT)
@@ -56,7 +61,7 @@ def main(argv=None) -> int:
         print("no CUDA device: the control runs on the card only",
               file=sys.stderr)
         return 2
-    cell = harness.load_cell(args.workload)
+    cell = harness.load_cell(args.workload, spec_path=args.spec)
     rows = []
     for seed in args.seeds:
         t0 = time.perf_counter()

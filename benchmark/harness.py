@@ -12,6 +12,20 @@ or kernel family is a file found by its name:
                              None; a dot in the name is a folder
   kernels/<family>.json      the family's __global__ names and counter
 
+A configuration file states sjpeg's settings under these keys, each passed
+to the port's EncoderParam (`port_param`) and to the plain reference's
+Settings (`reference_settings`), the only two readers:
+
+  quality, yuv_mode (auto, 420, sharp, 444, 400), huffman_compress,
+  adaptive_quantization, use_trellis (method 7: with the two before it),
+  quantization_bias, qdelta_max_luma, qdelta_max_chroma    all required
+  target  optional, sjpeg's search: {"mode": "size" (bytes an image) or
+          "psnr" (dB), "value", "passes" (2-20, default 10), "tolerance"
+          (percent, 1), "qmin" (0), "qmax" (100)}
+
+and may carry name, source, what, assumed, reduced and guarantees, which
+describe it and set nothing.  Any other key is a Failure.
+
 A request is one call of the cell's entry, from handing over host pixels to
 holding the JPEG bytes.  The window issues requests in a closed loop until
 its seconds are up, and waits for those already issued; its length runs
@@ -110,11 +124,69 @@ def load_module(bench_dir: Path, kind: str, name: str):
     return module
 
 
+# the encoder settings a configuration file states, each mapped to the
+# port's EncoderParam and to the plain reference's Settings
+SETTINGS = ("quality", "yuv_mode", "huffman_compress",
+            "adaptive_quantization", "use_trellis", "quantization_bias",
+            "qdelta_max_luma", "qdelta_max_chroma")
+# the optional search: sjpeg's -size / -psnr, -pass, -tolerance, -qmin,
+# -qmax; a field left out takes the default of the port's set_target_size
+# and set_target_psnr, which is sjpeg's
+TARGET_DEFAULTS = {"passes": 10, "tolerance": 1.0, "qmin": 0.0,
+                   "qmax": 100.0}
+TARGET_MODES = ("size", "psnr")
+# keys that describe the configuration and set nothing
+DESCRIPTIVE = ("name", "source", "what", "assumed", "reduced", "guarantees")
+
+
+def _target(config: dict):
+    """A configuration's settings checked: every key known, every setting
+    there, a trellis only where sjpeg runs it; -> its search as a dict
+    with every field, or None."""
+    unknown = sorted(set(config) - set(SETTINGS) - set(DESCRIPTIVE)
+                     - {"target"})
+    if unknown:
+        raise Failure(f"unknown configuration keys {unknown}")
+    missing = [k for k in SETTINGS if k not in config]
+    if missing:
+        raise Failure(f"configuration keys missing: {missing}")
+    if config["yuv_mode"] not in MODES:
+        raise Failure(f"unknown yuv_mode {config['yuv_mode']!r}")
+    if config["use_trellis"] and not (config["huffman_compress"]
+                                      and config["adaptive_quantization"]):
+        raise Failure("use_trellis needs huffman_compress and "
+                      "adaptive_quantization (method 7): sjpeg ignores it "
+                      "otherwise")
+    if "target" not in config:
+        return None
+    given = config["target"]
+    if not isinstance(given, dict):
+        raise Failure("target is an object")
+    unknown = sorted(set(given) - set(TARGET_DEFAULTS) - {"mode", "value"})
+    if unknown:
+        raise Failure(f"unknown target keys {unknown}")
+    t = dict(TARGET_DEFAULTS, **given)
+    if t.get("mode") not in TARGET_MODES:
+        raise Failure(f"target.mode is one of {TARGET_MODES}")
+    for k in ("value", "tolerance", "qmin", "qmax"):
+        if isinstance(t.get(k), bool) or not isinstance(t.get(k),
+                                                         (int, float)):
+            raise Failure(f"target.{k} is a number")
+    if t["value"] <= 0:
+        raise Failure("target.value is above 0")
+    if (isinstance(t["passes"], bool) or not isinstance(t["passes"], int)
+            or not 2 <= t["passes"] <= 20):
+        raise Failure("target.passes is a whole number from 2 to 20: sjpeg "
+                      "runs no search on one pass and stops at 20")
+    return t
+
+
 def port_param(config: dict):
     """The port's EncoderParam for a configuration file."""
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch.params import EncoderParam
-    return EncoderParam(
+    t = _target(config)
+    param = EncoderParam(
         quality=config["quality"],
         yuv_mode=getattr(C, MODES[config["yuv_mode"]]),
         huffman_compress=config["huffman_compress"],
@@ -123,18 +195,29 @@ def port_param(config: dict):
         quantization_bias=config["quantization_bias"],
         qdelta_max_luma=config["qdelta_max_luma"],
         qdelta_max_chroma=config["qdelta_max_chroma"])
+    if t is not None:
+        aim = (param.set_target_size if t["mode"] == "size"
+               else param.set_target_psnr)
+        aim(t["value"], t["tolerance"], t["passes"])
+        param.qmin, param.qmax = t["qmin"], t["qmax"]
+    return param
 
 
 def reference_settings(config: dict) -> reference.Settings:
-    if config["use_trellis"]:
-        raise Failure("the plain reference has no trellis quantization")
+    """The plain reference's Settings for a configuration file."""
+    t = _target(config)
+    search = {} if t is None else dict(
+        target_mode=t["mode"], target_value=float(t["value"]),
+        passes=t["passes"], tolerance=float(t["tolerance"]),
+        qmin=float(t["qmin"]), qmax=float(t["qmax"]))
     return reference.Settings(
         quality=config["quality"], yuv_mode=config["yuv_mode"],
         optimize_huffman=config["huffman_compress"],
         adaptive_quantization=config["adaptive_quantization"],
         quantization_bias=config["quantization_bias"],
         qdelta_max_luma=config["qdelta_max_luma"],
-        qdelta_max_chroma=config["qdelta_max_chroma"])
+        qdelta_max_chroma=config["qdelta_max_chroma"],
+        use_trellis=config["use_trellis"], **search)
 
 
 def kernel_families(bench_dir: Path) -> dict:

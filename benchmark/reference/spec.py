@@ -282,12 +282,13 @@ def pack_fields(start: np.ndarray, value: np.ndarray, length: np.ndarray,
 
 
 def code_scan(blocks_rl: dict, dc_codes: np.ndarray, table: np.ndarray,
-              dc_luts, ac_luts) -> bytes:
+              dc_luts, ac_luts) -> tuple:
     """The entropy-coded scan of blocks already in MCU-interleaved order:
     per block its DC code and suffix, for each coded AC position its ZRL
     escapes, code and suffix, and an EOB unless position 63 is coded;
-    '1' padding to a byte and 0xFF stuffing.  `table` picks the luma (0)
-    or chroma (1) LUTs of each block; a LUT entry is code << 16 | length."""
+    '1' padding to a byte.  `table` picks the luma (0) or chroma (1) LUTs
+    of each block; a LUT entry is code << 16 | length.  -> (the padded
+    bytes before 0xFF stuffing, the scan's bits before the padding)."""
     nblk = dc_codes.shape[0]
     dc_lut = np.stack([np.asarray(t, dtype=np.int64) for t in dc_luts])
     ac_lut = np.stack([np.asarray(t, dtype=np.int64) for t in ac_luts])
@@ -341,7 +342,7 @@ def code_scan(blocks_rl: dict, dc_codes: np.ndarray, table: np.ndarray,
     starts = np.append(ends - ln, total)
     raw = pack_fields(starts, np.append(val, (1 << pad) - 1),
                       np.append(ln, pad), total + pad)
-    return stuff_bytes(raw)
+    return raw, total
 
 
 def stuff_bytes(raw: np.ndarray) -> bytes:

@@ -354,7 +354,7 @@ def test_no_module_imports_jax_or_the_jax_package():
         assert not tops & set(harness.FORBIDDEN), p
         if "reference" in p.parts:
             assert "sjpeg_tpu_torch" not in tops, p
-            assert tops <= {"dataclasses", "functools", "numpy",
+            assert tops <= {"dataclasses", "functools", "math", "numpy",
                             "pathlib"}, p
 
 
