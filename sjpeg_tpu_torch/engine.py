@@ -609,15 +609,29 @@ def _stage_quantize_trellis(coeffs, iquant, ibias, quant, lt_lens,
     method-7 counterpart of `_stage_batch_quantize` (src/enc.cc:692-761),
     with the same `dc_codes` and `valid`.  iquant/ibias/quant: [2, 64]
     shared or [B, 2, 64] per image; lt_lens: [2, 256] or [B, 2, 256] AC
-    code lengths, the rate model."""
-    cinter, dc_codes, group = _interleave_coeffs(coeffs, iquant, ibias,
-                                                 nb_blocks, n_images,
-                                                 dc_codes)
-    qinter = trellis.trellis_quantize(cinter, iquant, ibias, quant, group,
-                                      lt_lens, n_images)
-    del cinter
-    return _stage_trellis_post(qinter, dc_codes, group, with_stats,
-                               stats_images, valid)
+    code lengths, the rate model.  One span `sjpeg.trellis` a call."""
+    with span("trellis"):
+        cinter, dc_codes, group = _interleave_coeffs(coeffs, iquant, ibias,
+                                                     nb_blocks, n_images,
+                                                     dc_codes)
+        qinter = trellis.trellis_quantize(cinter, iquant, ibias, quant,
+                                          group, lt_lens, n_images)
+        del cinter
+        return _stage_trellis_post(qinter, dc_codes, group, with_stats,
+                                   stats_images, valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _cost_lens(device: torch.device) -> torch.Tensor:
+    """The trellis's [2, 256] K.3 rate lengths (`trellis_cost_lens`) on
+    `device`, uploaded once a device and held read-only: no request waits
+    for an upload queued behind its stream's work.  The uploading stream
+    is synchronised once here, so that a launch on any stream reads them
+    complete."""
+    (lens,) = state.arrays_to_device(trellis_cost_lens(), device=device)
+    if lens.is_cuda:
+        torch.cuda.current_stream(lens.device).synchronize()
+    return lens
 
 
 def _stage_tables(freqs, flags, n_groups: int, b: int,
@@ -775,10 +789,9 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
     iq, ib, quant = _fit_on_device(histos, param, flags, n_groups,
                                    share_statistics, device)
     if flags["use_trellis"]:
-        (lens,) = state.arrays_to_device(trellis_cost_lens(), device=device)
         vlc_state, freqs = _stage_quantize_trellis(
-            coeffs, iq, ib, quant, lens, flags["optimize_size"],
-            nb_blocks, b, stats_images)
+            coeffs, iq, ib, quant, _cost_lens(device),
+            flags["optimize_size"], nb_blocks, b, stats_images)
     else:
         vlc_state, freqs = _stage_batch_quantize(
             coeffs, iq, ib, flags["optimize_size"], nb_blocks, b,
@@ -972,8 +985,7 @@ def _encode_coeffs(coeffs, histos, layout, param: EncoderParam) -> bytes:
         return encode_search_one(coeffs, histos, layout, param)
     device = coeffs[0].device
     rows = _fit_on_device(histos, param, flags, n_groups, True, device)
-    lt_lens = (state.arrays_to_device(trellis_cost_lens(), device=device)[0]
-               if flags["use_trellis"] else None)
+    lt_lens = _cost_lens(device) if flags["use_trellis"] else None
     words, totals, tables = _stage_one_pass(coeffs, rows, flags, nb_blocks,
                                             n_groups, lt_lens)
     with span("tail"):
