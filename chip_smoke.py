@@ -24,7 +24,10 @@ against the plain PyTorch versions on the same card:
   1000 x 750, NV12, overflow re-packs, GPU vs CPU path), m4_timing,
   m4_breakdown; lambda_fit (the kernel against the host route, its
   device time and bound, launches and host fits a request in the three
-  benchmark cells' entries);
+  benchmark cells' entries); vlc_fields (the fields-and-frequencies
+  kernel against its plain twin on coefficients and on the trellis's
+  levels, on the main batch and a 12-MP photo; its device time, ptxas
+  figures and launches a request in the benchmark cells' entries);
 - method 7 (method 4 with trellis quantization), through trellis,
   merge_codesizes, vlc_pack and stream_concat.  Phases: tr_parity (the
   trellis op: a work pass, class starts, a ranking and the search; with
@@ -239,7 +242,7 @@ def plain_forced():
     from sjpeg_tpu_torch.ops import (fdct, huffman_device, lambda_fit,
                                      merge_codesizes, quant_pack,
                                      sample_pack, sharp_yuv, stream_concat,
-                                     trellis, vlc_pack)
+                                     trellis, vlc_fields, vlc_pack)
     from sjpeg_tpu_torch.sharp_yuv import sharp_iterate_plain
     packs = dict(
         sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
@@ -259,7 +262,9 @@ def plain_forced():
             mock.patch.object(sharp_yuv, "sharp_iterate",
                               sharp_iterate_plain), \
             mock.patch.object(lambda_fit, "lambda_fit",
-                              lambda_fit.lambda_fit_plain):
+                              lambda_fit.lambda_fit_plain), \
+            mock.patch.object(vlc_fields, "vlc_fields",
+                              vlc_fields.vlc_fields_plain):
         yield
 
 
@@ -275,11 +280,12 @@ def counted_wrappers() -> dict:
     `.launches`."""
     from sjpeg_tpu_torch.ops import (fdct, lambda_fit, merge_codesizes,
                                      quant_pack, sample_pack, stream_concat,
-                                     trellis, vlc_pack)
+                                     trellis, vlc_fields, vlc_pack)
     from sjpeg_tpu_torch.ops import riskiness as risk_dev
     from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
     return {"sharp_yuv": sharp_ops.sharp_iterate,
             "lambda_fit": lambda_fit.lambda_fit,
+            "vlc_fields": vlc_fields.vlc_fields,
             "risk_stats": risk_dev.risk_stats,
             "sample_pack": sample_pack.sample_pack,
             "fdct": fdct.fdct_blocks,
@@ -683,6 +689,8 @@ def main() -> int:
     rows += method4_phases(card, rgb, vlc_long_err)
     torch.cuda.empty_cache()
     rows.append(lambda_fit_phase(card, rgb))
+    torch.cuda.empty_cache()
+    rows.append(vlc_fields_phase(card, rgb, logs))
     torch.cuda.empty_cache()
     by_name = {r["name"]: r for r in rows}
     tr_rows, tr_table_err = trellis_phases(card, rgb)
@@ -1380,6 +1388,120 @@ def lambda_fit_phase(card: str, rgb: np.ndarray) -> dict:
         histos[0].numel() * 4 * 2 + 3 * b * 2 * 64 * 4,
         n_pairs * C.MAX_HISTO_DCT_COEFF * 4, device_us=device_us,
         per_request=per_request)
+
+
+def vlc_fields_phase(card: str, rgb: np.ndarray, logs: dict) -> dict:
+    """vlc_fields on the main batch's interleaved coefficients (method 4:
+    per-image quantizer sets and stats images, and one shared set) and on
+    the trellis's levels of the same rows (method 7), with and without
+    counts and with a `valid` mask, and on a 12-MP photo's: the kernel
+    against its plain twin; its device microseconds a launch at 16 x
+    1024^2 and on the photo beside the bytes' bound, CUDA-event ms and the
+    plain twin's ms; each instance's registers, spills and shared memory;
+    its launches a request in the entries of the benchmark cells (the
+    default AUTO batch, the photo at methods 4 and 7, method 0's batch).
+    Returns the kernels-line row."""
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch import engine, pipeline
+    from sjpeg_tpu_torch.ops import trellis, vlc_fields
+    from sjpeg_tpu_torch.params import EncoderParam, method_flags
+
+    dev = torch.device(DEVICE)
+    param = method4(C.YUV_420)
+    flags = method_flags(param.method)
+
+    def staged(img: np.ndarray, per_image: bool):
+        """(interleaved coefficients, DC codes, groups, quantizer rows,
+        the trellis's levels of the rows) of a batch."""
+        b, h, w = img.shape[:3]
+        nb = tuple(pipeline.component_layout(C.YUV_420, w, h).nb_blocks)
+        coeffs, histos = engine._stage_batch_coeffs(
+            torch.from_numpy(img).to(dev), "rgb", C.YUV_420, w, h, True,
+            b if per_image else 1)
+        iq, ib, quant = engine._fit_on_device(histos, param, flags, 2,
+                                              not per_image, dev)
+        cinter, dc, group = engine._interleave_coeffs(coeffs, iq, ib, nb, b)
+        levels = trellis.trellis_quantize(cinter, iq, ib, quant, group,
+                                          engine._cost_lens(dev), b)
+        return cinter, dc, group, (iq, ib), levels
+
+    photo = make_rgb(1, 3024, 4032, SEED + 600)
+    inputs = {"batch": staged(rgb, True), "batch_shared": staged(rgb, False),
+              "photo": staged(photo, False)}
+    errs = {}
+    for name, (cinter, dc, group, quant, levels) in inputs.items():
+        b = rgb.shape[0] if name == "batch" else 1
+        valid = (torch.arange(dc.shape[0], device=dev) % 7 != 3)
+        for form, rows, q in (("coefficients", cinter, quant),
+                              ("levels", levels, ())):
+            for stats, v in ((True, None), (True, valid), (False, None)):
+                kw = dict(stats_images=b, valid=v, with_stats=stats)
+                got, gf = vlc_fields.vlc_fields(rows, dc, group, *q, **kw)
+                want, wf = vlc_fields.vlc_fields_plain(rows, dc, group, *q,
+                                                       **kw)
+                torch.cuda.synchronize()
+                pairs = [(got[k], want[k]) for k in ("run", "size", "code")]
+                errs[f"{name}/{form}/stats={stats}/valid={v is not None}"] = \
+                    max_err(pairs + (list(zip(gf, wf)) if stats else []))
+
+    def launch(name: str, form: str):
+        cinter, dc, group, quant, levels = inputs[name]
+        b = rgb.shape[0] if name == "batch" else 1
+        if form == "levels":
+            return lambda: vlc_fields.vlc_fields(levels, dc, group,
+                                                 stats_images=b)
+        return lambda: vlc_fields.vlc_fields(cinter, dc, group, *quant,
+                                             stats_images=b)
+
+    timing = {}
+    for name in ("batch", "photo"):
+        for form in ("coefficients", "levels"):
+            fn = launch(name, form)
+            timing[f"{name}/{form}"] = {
+                "device_us": kernel_us(fn, "vlc_fields"),
+                "ms": event_ms(fn, 20)}
+        cinter, dc, group, quant, _ = inputs[name]
+        b = rgb.shape[0] if name == "batch" else 1
+        timing[f"{name}/coefficients"]["plain_ms"] = host_ms(
+            lambda: vlc_fields.vlc_fields_plain(cinter, dc, group, *quant,
+                                                stats_images=b), 3)
+        timing[f"{name}/rows"] = int(dc.shape[0])
+    auto = four_mode_batch(1024, 4)
+    entries = {
+        "default_batch": lambda: engine.encode_batch(auto, EncoderParam(),
+                                                     device=dev),
+        "photo": lambda: engine.encode_rgb(photo[0], EncoderParam(),
+                                           device=dev),
+        "m7_photo": lambda: engine.encode_rgb(
+            photo[0], EncoderParam(use_trellis=True), device=dev),
+        "m0_batch": lambda: engine.encode_batch(rgb, method0(C.YUV_420),
+                                                device=dev)}
+    per_request = {}
+    for name, call in entries.items():
+        call()
+        vlc_fields.vlc_fields.launches = 0
+        call()
+        per_request[name] = vlc_fields.vlc_fields.launches
+    ptxas = {e: ptxas_info(logs.get("vlc_fields", ""), e)
+             for e in ("vlc_fields_kernelILb1E", "vlc_fields_kernelILb0E")}
+    emit("vlc_fields", gpu=card, max_abs_err=errs, timing=timing,
+         launches_per_request=per_request, ptxas=ptxas)
+    need(max(errs.values()) == 0,
+         "vlc_fields exact against its plain twin in both forms")
+    need(per_request == {"default_batch": 4, "photo": 1, "m7_photo": 1,
+                         "m0_batch": 0},
+         "one vlc_fields launch a sub-batch or staged image, none in "
+         "method 0")
+    n = timing["batch/rows"]
+    return kernel_row(
+        "vlc_fields", "csrc/vlc_fields.cu",
+        "none: engine._interleave_quantized + _grouped_stats (XLA glue in "
+        "the JAX package)", per_request["default_batch"],
+        max(errs.values()), timing["batch/coefficients"]["ms"],
+        timing["batch/coefficients"]["plain_ms"],
+        n * (64 * 4 + 3 * 64 * 4 + 2 * 4), 0,
+        device_us=timing["batch/coefficients"]["device_us"], timing=timing,
+        per_request=per_request, ptxas=ptxas)
 
 
 def trellis_phases(card: str, rgb: np.ndarray) -> list:
@@ -2472,7 +2594,8 @@ def sharded_phases(card: str, rgb: np.ndarray) -> dict:
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels
     from sjpeg_tpu_torch.ops import (fdct, lambda_fit, merge_codesizes,
-                                     stream_concat, trellis, vlc_pack)
+                                     stream_concat, trellis, vlc_fields,
+                                     vlc_pack)
     from sjpeg_tpu_torch.ops import riskiness as risk_dev
     from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
     from sjpeg_tpu_torch.params import EncoderParam
@@ -2489,6 +2612,7 @@ def sharded_phases(card: str, rgb: np.ndarray) -> dict:
         return make_mesh(dp, sp, devs)
 
     counted = {"fdct": fdct.fdct_blocks, "lambda_fit": lambda_fit.lambda_fit,
+               "vlc_fields": vlc_fields.vlc_fields,
                "trellis": trellis.trellis_quantize,
                "merge_codesizes": merge_codesizes.optimal_tables,
                "vlc_pack": vlc_pack.vlc_pack,

@@ -17,12 +17,13 @@ JAX engine stages them off the relay (`_encode_batch_optimized`):
   colour + fDCT + coefficient histograms  _stage_batch_coeffs, ops/fdct
                                                            [CUDA kernel 6]
   lambda fit per image and table group    ops/lambda_fit   [CUDA kernel 9]
-  quantize + MCU interleave + VLC fields
-    + DC chain + symbol frequencies       _stage_batch_quantize [torch]
+  MCU interleave + DC chain               _interleave_coeffs [torch]
+  quantize + VLC fields + symbol
+    frequencies                           ops/vlc_fields   [CUDA kernel 10]
   or, method 7:
     MCU interleave + DC chain             _interleave_coeffs [torch]
     trellis quantization                  ops/trellis      [CUDA kernel 5]
-    VLC fields + symbol frequencies       _stage_trellis_post [torch]
+    VLC fields + symbol frequencies       ops/vlc_fields   [CUDA kernel 10]
   optimal tables, one launch a build      ops/huffman_device,
                                           ops/merge_codesizes [CUDA kernel 4]
   Huffman lookup + per-block pack         ops/vlc_pack     [CUDA kernel 3]
@@ -89,7 +90,8 @@ from .adaptive import analyse_histo
 from .huffman import (build_code_lut, k3_default_tables,
                       optimal_tables_from_freqs, trellis_cost_lens)
 from .ops import colorspace, fdct, huffman_device, lambda_fit, pack, \
-    quant_pack, quantize, sample_pack, stream_concat, trellis, vlc, vlc_pack
+    quant_pack, quantize, sample_pack, stream_concat, trellis, vlc, \
+    vlc_fields, vlc_pack
 from .ops import riskiness as risk_device
 from .params import TARGET_NONE, EncoderParam, method_flags
 from .utils.profiling import span
@@ -483,58 +485,29 @@ def _interleave_quantized(coeffs, iquant, ibias, nb_blocks,
     return rl, dc_codes, _slot_groups(nb_blocks, n_mcu, qinter.device)
 
 
-def _grouped_stats(rl, dc_codes, group, n_images: int = 1, valid=None):
-    """Per-table-group symbol frequencies from interleaved VLC fields:
-    int32 ([B, 2, 12] DC, [B, 2, 256] AC) per image (rows image-major,
-    equal blocks per image), unbatched ([2, 12], [2, 256]) when
-    n_images == 1.  AC counts include a ZRL at 0xF0 for every 16 zeros
-    of a run and an EOB at 0x00 for each block not ending at position 63.
-    `valid`: optional [N] bool; blocks with False count no symbol, DC and
-    EOB included (the padding blocks of a ragged stripe).  Integer
-    scatter-adds are exact: no one-hot matmul."""
-    nz = rl["nz"] if valid is None else rl["nz"] & valid[:, None]
-    n = nz.shape[0]
-    dev = nz.device
-    img = torch.arange(n_images, device=dev).repeat_interleave(n // n_images)
-    tab = img * 2 + group                                  # [N] table
-    sym = ((rl["run"] & 15) << 4) | rl["size"]             # 0 where not nz
-    freq_ac = torch.zeros(n_images * 512, dtype=torch.int32, device=dev)
-    freq_ac.scatter_add_(0, (tab[:, None] * 256 + sym).reshape(-1),
-                         nz.to(torch.int32).reshape(-1))
-    esc = torch.where(nz, rl["run"] >> 4, 0).sum(dim=1, dtype=torch.int32)
-    freq_ac.scatter_add_(0, tab * 256 + 0xF0, esc)
-    eob = rl["last"] < 63
-    if valid is not None:
-        eob = eob & valid
-    freq_ac.scatter_add_(0, tab * 256, eob.to(torch.int32))
-
-    # DC: the JAX one-hot over 26 = 2 x 13 size bins drops larger indices
-    dci = group * 13 + (dc_codes & 0x0F)
-    dump = n_images * 26
-    keep = dci < 26 if valid is None else (dci < 26) & valid
-    idx = torch.where(keep, img * 26 + dci, dump)
-    freq_dc = torch.zeros(dump + 1, dtype=torch.int32, device=dev)
-    freq_dc.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-    freq_dc = freq_dc[:dump].reshape(n_images, 2, 13)[:, :, :12]
-    freq_ac = freq_ac.reshape(n_images, 2, 256)
-    if n_images == 1:
-        return freq_dc[0], freq_ac[0]
-    return freq_dc, freq_ac
-
-
 def _stage_batch_quantize(coeffs, iquant, ibias, with_stats: bool,
                           nb_blocks, n_images: int, stats_images: int,
                           dc_codes=None, valid=None):
     """-> ((VLC fields, DC codes, groups), frequencies or None).
     `dc_codes`: MCU-interleaved DC codes to use instead of the per-image
-    chain; `valid`: the blocks the frequencies count (all when None)."""
+    chain; `valid`: the blocks the frequencies count (all when None).  On
+    the card one vlc_fields launch quantizes the interleaved coefficients
+    and derives both; elsewhere the plain torch chain runs."""
+    if coeffs[0].is_cuda:
+        cinter, dc_codes, group = _interleave_coeffs(coeffs, iquant, ibias,
+                                                     nb_blocks, n_images,
+                                                     dc_codes)
+        rl, freqs = vlc_fields.vlc_fields(
+            cinter, dc_codes, group, iquant, ibias, stats_images=stats_images,
+            valid=valid, with_stats=with_stats)
+        return (rl, dc_codes, group), freqs
     rl, dc_codes, group = _interleave_quantized(coeffs, iquant, ibias,
                                                 nb_blocks, n_images,
                                                 dc_codes)
     if not with_stats:
         return (rl, dc_codes, group), None
-    return (rl, dc_codes, group), _grouped_stats(rl, dc_codes, group,
-                                                 stats_images, valid)
+    return (rl, dc_codes, group), vlc.grouped_stats(rl, dc_codes, group,
+                                                    stats_images, valid)
 
 
 def _interleave_coeffs(coeffs, iquant, ibias, nb_blocks, n_images: int = 1,
@@ -594,12 +567,12 @@ def _interleave_dc(codes, nb_blocks) -> torch.Tensor:
 def _stage_trellis_post(qinter, dc_codes, group, with_stats: bool,
                         stats_images: int, valid=None):
     """Trellis levels -> ((int32 VLC fields, DC codes, groups),
-    frequencies of the `valid` blocks (all when None), or None)."""
-    rl = vlc.run_levels(qinter, torch.int32)
-    if not with_stats:
-        return (rl, dc_codes, group), None
-    return (rl, dc_codes, group), _grouped_stats(rl, dc_codes, group,
-                                                 stats_images, valid)
+    frequencies of the `valid` blocks (all when None), or None): one
+    vlc_fields launch on the card, its plain twin elsewhere."""
+    rl, freqs = vlc_fields.vlc_fields(qinter, dc_codes, group,
+                                      stats_images=stats_images, valid=valid,
+                                      with_stats=with_stats)
+    return (rl, dc_codes, group), freqs
 
 
 def _stage_quantize_trellis(coeffs, iquant, ibias, quant, lt_lens,

@@ -164,7 +164,7 @@ def _search_component_freqs(coeffs, iq3, ib3, n_images: int):
         dcc = vlc.dc_diff_codes(qb[:, 0], n_images)
         grp = torch.full((qb.shape[0],), g, dtype=torch.int32,
                          device=qb.device)
-        d, a = engine._grouped_stats(rl, dcc, grp, n_images)
+        d, a = vlc.grouped_stats(rl, dcc, grp, n_images)
         fdc, fac = fdc + d, fac + a
     return fdc.reshape(n_images, 2, -1), fac.reshape(n_images, 2, -1)
 

@@ -1,5 +1,6 @@
-"""VLC preparation on tensors: run/levels, DC prediction, and per-block
-(value, length) entry streams ready for bit packing.
+"""VLC preparation on tensors: run/levels, DC prediction, each table's
+symbol frequencies, and per-block (value, length) entry streams ready for
+bit packing.
 
 The reference walks each block serially emitting bits (src/enc.cc:882-911);
 here every quantity is computed for all blocks at once.  Each block becomes
@@ -71,6 +72,45 @@ def dc_diff_codes(dc: torch.Tensor, n_images: int = 1,
     n = torch.where(diff == 0, 0, calc_log2(diff.abs()))
     suff = torch.where(diff < 0, (diff - 1) & ((1 << n) - 1), diff)
     return torch.where(diff == 0, 0, n | (suff << 4)).to(torch.int32)
+
+
+def grouped_stats(rl, dc_codes, group, n_images: int = 1, valid=None):
+    """Per-table-group symbol frequencies from interleaved VLC fields:
+    int32 ([B, 2, 12] DC, [B, 2, 256] AC) per image (rows image-major,
+    equal blocks per image), unbatched ([2, 12], [2, 256]) when
+    n_images == 1.  AC counts include a ZRL at 0xF0 for every 16 zeros
+    of a run and an EOB at 0x00 for each block not ending at position 63.
+    `valid`: optional [N] bool; blocks with False count no symbol, DC and
+    EOB included (the padding blocks of a ragged stripe).  Integer
+    scatter-adds are exact: no one-hot matmul."""
+    nz = rl["nz"] if valid is None else rl["nz"] & valid[:, None]
+    n = nz.shape[0]
+    dev = nz.device
+    img = torch.arange(n_images, device=dev).repeat_interleave(n // n_images)
+    tab = img * 2 + group                                  # [N] table
+    sym = ((rl["run"] & 15) << 4) | rl["size"]             # 0 where not nz
+    freq_ac = torch.zeros(n_images * 512, dtype=torch.int32, device=dev)
+    freq_ac.scatter_add_(0, (tab[:, None] * 256 + sym).reshape(-1),
+                         nz.to(torch.int32).reshape(-1))
+    esc = torch.where(nz, rl["run"] >> 4, 0).sum(dim=1, dtype=torch.int32)
+    freq_ac.scatter_add_(0, tab * 256 + 0xF0, esc)
+    eob = rl["last"] < 63
+    if valid is not None:
+        eob = eob & valid
+    freq_ac.scatter_add_(0, tab * 256, eob.to(torch.int32))
+
+    # DC: the JAX one-hot over 26 = 2 x 13 size bins drops larger indices
+    dci = group * 13 + (dc_codes & 0x0F)
+    dump = n_images * 26
+    keep = dci < 26 if valid is None else (dci < 26) & valid
+    idx = torch.where(keep, img * 26 + dci, dump)
+    freq_dc = torch.zeros(dump + 1, dtype=torch.int32, device=dev)
+    freq_dc.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    freq_dc = freq_dc[:dump].reshape(n_images, 2, 13)[:, :, :12]
+    freq_ac = freq_ac.reshape(n_images, 2, 256)
+    if n_images == 1:
+        return freq_dc[0], freq_ac[0]
+    return freq_dc, freq_ac
 
 
 def block_entries_grouped(rl: dict, dc_codes: torch.Tensor,

@@ -96,7 +96,7 @@ def test_vlc_pack_matches_plain_on_gpu(n_images, per_img, per_image):
     (1024)."""
     _need_cuda()
     rl, dc, group = _vlc_state(n_images, per_img, 17)
-    freqs = engine._grouped_stats(rl, dc, group, n_images)
+    freqs = vlc.grouped_stats(rl, dc, group, n_images)
     dcl, acl, _, _ = huffman_device.luts_and_desc_from_freqs(*freqs)
     if not per_image:
         dcl, acl = dcl[-1].contiguous(), acl[-1].contiguous()
@@ -331,7 +331,7 @@ def test_sample_pack_per_image_matches_plain_on_gpu(n_images, per_img,
     samples[::7] //= 16                                  # smoother rows
     rl, dc, group = _vlc_state(n_images, per_img, 23)
     dcl, acl, _, _ = huffman_device.luts_and_desc_from_freqs(
-        *engine._grouped_stats(rl, dc, group, n_images))
+        *vlc.grouped_stats(rl, dc, group, n_images))
     per_qms = [engine._quant_matrices(EncoderParam(quality=q))
                for q in ((30, 75, 100, 90)[i % 4] for i in range(n_images))]
     iq3, ib3 = state.arrays_to_device(

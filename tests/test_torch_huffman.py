@@ -230,7 +230,7 @@ def test_vlc_pack_plain_matches_pallas_interpret(per_image):
     rl = vlc.run_levels(torch.from_numpy(q), torch.int32)
     dc = vlc.dc_diff_codes(torch.from_numpy(rng.randint(-1023, 1024, n)), b)
     group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32))
-    freq_dc, freq_ac = engine._grouped_stats(rl, dc, group, b)
+    freq_dc, freq_ac = vlc.grouped_stats(rl, dc, group, b)
     dcl, acl, _, _ = hd.luts_and_desc_from_freqs(freq_dc, freq_ac)
     if not per_image:
         dcl, acl = dcl[1], acl[1]
@@ -288,7 +288,7 @@ def _quant_rows(b):
 @pytest.mark.parametrize("per_image", [False, True])
 def test_interleave_and_grouped_stats_match_jax(mode, per_image):
     """_interleave_quantized (int32 fields, per-image DC reset, groups) and
-    _grouped_stats (per-image [B, 2, 12] / [B, 2, 256] with ZRL and EOB
+    vlc.grouped_stats (per-image [B, 2, 12] / [B, 2, 256] with ZRL and EOB
     counts, or unbatched for the whole batch) == the JAX engine's."""
     b, mcu = 3, 6
     cs = _coeffs(np.random.RandomState(35), mode, b, mcu)
@@ -307,7 +307,7 @@ def test_interleave_and_grouped_stats_match_jax(mode, per_image):
     np.testing.assert_array_equal(dc.numpy(), np.asarray(jdc))
     np.testing.assert_array_equal(group.numpy(), np.asarray(jgroup))
     for stats_images in (1, b):
-        got = engine._grouped_stats(rl, dc, group, stats_images)
+        got = vlc.grouped_stats(rl, dc, group, stats_images)
         want = jengine._grouped_stats(jrl, jdc, jgroup, stats_images)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -488,7 +488,7 @@ def _vlc_case(n_sets):
     dc = engine.vlc.dc_diff_codes(torch.from_numpy(
         rng.randint(-1023, 1024, n)), n // per_img)
     group = torch.from_numpy((np.arange(n) % 6 >= 4).astype(np.int32))
-    freq_dc, freq_ac = engine._grouped_stats(rl, dc, group, n // per_img)
+    freq_dc, freq_ac = engine.vlc.grouped_stats(rl, dc, group, n // per_img)
     dcl, acl, _, _ = engine.huffman_device.luts_and_desc_from_freqs(
         freq_dc, freq_ac)
     if n_sets == 1:

@@ -83,7 +83,7 @@ def test_average_extra_luma_dynamic_row_matches_jax(width, sub_h, clip_row):
 
 @pytest.mark.parametrize("n_images", [1, 2])
 def test_masked_statistics_match_jax(n_images):
-    """store_histo(valid=) and _grouped_stats(valid=) == the JAX masked
+    """store_histo(valid=) and vlc.grouped_stats(valid=) == the JAX masked
     versions: padding blocks count nothing, DC and EOB included."""
     rng = np.random.RandomState(7 + n_images)
     per = 48
@@ -106,7 +106,7 @@ def test_masked_statistics_match_jax(n_images):
     want = jax.jit(lambda q, dc, g, v: jengine._grouped_stats(
         jvlc.run_levels(q), dc, g, n_images, v))(
             jnp.asarray(q), dc, jnp.asarray(group), jnp.asarray(valid))
-    got = engine._grouped_stats(
+    got = vlc.grouped_stats(
         vlc.run_levels(torch.from_numpy(q), torch.int32),
         torch.from_numpy(np.array(dc)), torch.from_numpy(group),
         n_images, torch.from_numpy(valid))
