@@ -101,8 +101,8 @@ against the plain PyTorch versions on the same card:
 - the C++ host helpers (sjpeg_tpu_torch.native, built by g++ in the build
   phase): host_native (which version of each helper the search and a
   shared-statistics encode ran, the build seconds, the main batch's scan
-  tails in C++ and in the NumPy twin, the node fit in C++ and in the
-  torch twin, the host stages that run them);
+  tails in C++ and in the NumPy twin, the node fit in C++ and by the
+  NumPy fit per pair, the host stages that run them);
 - the profiling utilities (sjpeg_tpu_torch.utils.profiling): profiling
   (after host_native) traces one encode_batch of the main batch with
   method 0 and with method 4 through device_trace, inside a StageTimer
@@ -1357,18 +1357,15 @@ def lambda_fit_phase(card: str, rgb: np.ndarray) -> dict:
                                                 device=dev)}
     per_request = {}
     for name, call in entries.items():
-        with mock.patch.object(engine, "analyse_histo",
-                               wraps=engine.analyse_histo) as tuned, \
-                mock.patch.object(adaptive, "analyse_histo",
-                                  wraps=adaptive.analyse_histo) as plain_fit:
+        with mock.patch.object(adaptive, "analyse_histo",
+                               wraps=adaptive.analyse_histo) as host_fit:
             call()
             lambda_fit.lambda_fit.launches = 0
-            tuned.reset_mock()
-            plain_fit.reset_mock()
+            host_fit.reset_mock()
             call()
             per_request[name] = {
                 "lambda_fit_launches": lambda_fit.lambda_fit.launches,
-                "host_fits": tuned.call_count + plain_fit.call_count}
+                "host_fits": host_fit.call_count}
     emit("lambda_fit", gpu=card, images=b, max_abs_err=errs,
          device_us=device_us, ms=ms, plain_ms=plain,
          per_request=per_request)
@@ -1495,8 +1492,8 @@ def vlc_fields_phase(card: str, rgb: np.ndarray, logs: dict) -> dict:
     n = timing["batch/rows"]
     return kernel_row(
         "vlc_fields", "csrc/vlc_fields.cu",
-        "none: engine._interleave_quantized + _grouped_stats (XLA glue in "
-        "the JAX package)", per_request["default_batch"],
+        "none: the interleaved quantize + grouped stats (XLA glue in the "
+        "JAX package's engine)", per_request["default_batch"],
         max(errs.values()), timing["batch/coefficients"]["ms"],
         timing["batch/coefficients"]["plain_ms"],
         n * (64 * 4 + 3 * 64 * 4 + 2 * 4), 0,
@@ -1751,11 +1748,12 @@ def search_inputs(img: np.ndarray, mode: int, quals) -> tuple:
                                     for q in quals]).astype(np.int32))
     iq3, ib3 = engine_search._derive_quant_arrays(qn.to(DEVICE),
                                                   C.DEFAULT_BIAS)
-    freqs = engine_search._search_component_freqs(prep["coeffs"], iq3, ib3,
-                                                  b)
-    dcl, acl, _, _ = huffman_device.luts_and_desc_from_freqs(
-        *freqs, 2 if len(nb) > 1 else 1)
     dc = engine._dc_codes(prep["coeffs"], iq3, ib3, nb, b)
+    _, freqs = engine._stage_batch_quantize(prep["coeffs"], iq3, ib3, True,
+                                            nb, b, b, dc_codes=dc)
+    dcl, acl, _, _ = huffman_device.luts_and_desc_from_freqs(
+        freqs[0].reshape(b, 2, -1), freqs[1].reshape(b, 2, -1),
+        2 if len(nb) > 1 else 1)
     return prep["sinter"], dc, prep["group"], iq3, ib3, dcl, acl
 
 
@@ -1764,12 +1762,15 @@ def search_phases(card: str, rgb: np.ndarray):
     search_path, search_cases, search_timing and search_breakdown; returns
     the per-image sample_pack row, the trellis's [B, 2, 256] rate-table
     launches in the method-7 search, and the host stages for host_native
-    (the search breakdown, the node fit in C++ and its torch twin)."""
+    (the search breakdown, the node fit in C++ and one image's luma by
+    adaptive.analyse_histo per pair)."""
     from sjpeg_tpu_torch import constants as C
-    from sjpeg_tpu_torch import engine, engine_search, kernels
+    from sjpeg_tpu_torch import adaptive, engine, engine_search, kernels
+    from sjpeg_tpu_torch.dichotomy import build_q_tree
     from sjpeg_tpu_torch.ops import (fdct, merge_codesizes, quantize,
                                      sample_pack, stream_concat, trellis,
                                      vlc_pack)
+    from sjpeg_tpu_torch.params import quant_matrices_for_quality
 
     dev = torch.device(DEVICE)
     target, passes = 200_000, 8
@@ -1960,13 +1961,20 @@ def search_phases(card: str, rgb: np.ndarray):
              nodes[0].reshape(-1, 128), axis=0).shape[0]),
          fetched_words=int(picked[0].size))
     need(out == jpegs, "the staged search gives the same bytes")
-    # the node fit's C++ version against its torch twin, same histograms
+    # the node fit in C++, and image 0's luma nodes by the NumPy fit per
+    # pair, its reference, on the same histograms
     fit_ms = {"native": host_ms(srch.node_matrices, 3)}
-    with mock.patch.dict("os.environ", {"SJPEG_ADAPTIVE_IMPL": "torch"}):
-        fit_ms["torch_twin"] = host_ms(srch.node_matrices, 3)
-        twin_nodes = srch.node_matrices()
-    need(np.array_equal(twin_nodes[0], nodes[0]),
-         "the node fit's torch twin equals the C++ fit")
+    minq = srch.min_qmats[0]
+    base = np.maximum(np.stack(
+        [quant_matrices_for_quality(q)[0]
+         for q in build_q_tree(param, srch.initial_q, passes)]), minq)
+    t0 = time.perf_counter()
+    per_pair = np.stack([adaptive.analyse_histo(
+        srch.histos[0, 0], qk.astype(np.uint8), minq, param.qdelta_max_luma)
+        for qk in base])
+    fit_ms["numpy_per_pair_image0_luma"] = (time.perf_counter() - t0) * 1e3
+    need(np.array_equal(np.maximum(per_pair, minq), nodes[0][0, :, 0]),
+         "the C++ node fit equals analyse_histo per pair")
 
     # ---- kernel row -----------------------------------------------------
     tab = (torch.arange(n, device=dev) // (n // BATCH)) * 2 + group.long()
@@ -2878,8 +2886,8 @@ def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
     call (the C++ one, never a twin), the g++ build seconds, the main
     batch's scan tails in C++ and in the NumPy twin (same words, same
     bytes), and the host stages that run them: the method-0 breakdown's
-    host_tail, the search breakdown (its node fit, in C++ and in its
-    torch twin, and its host_tail)."""
+    host_tail, the search breakdown (its node fit, in C++ and by the NumPy
+    fit per pair for one image's luma, and its host_tail)."""
     from sjpeg_tpu_torch import adaptive, bitio, engine, huffman, native
     from sjpeg_tpu_torch import constants as C
 
@@ -2888,7 +2896,7 @@ def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
     # each C++ helper and its twin
     names = {"words_to_scan": (bitio, "words_to_scan"),
              "huffman_codesizes": (huffman, "_codesizes_python"),
-             "analyse_histo_nodes": (adaptive, "_analyse_histo_nodes_torch")}
+             "analyse_histo_nodes": (adaptive, "analyse_histo")}
     calls = {kind: dict.fromkeys(names, 0) for kind in ("native", "twin")}
 
     def counter(kind, key, fn):

@@ -257,9 +257,9 @@ void AnalyseImage(const int64_t* histo /*[64][kFitBins]*/,
 extern "C" {
 
 // histos: int64[B][64][128]; quants: uint8[K][64] (pre-clamped to
-// min_quant); out: uint8[B][K][64].  Bit-identical to
-// adaptive._analyse_histo_nodes_torch (which is bit-identical per pair to
-// analyse_histo / the reference's AnalyseHisto integer+double semantics).
+// min_quant); out: uint8[B][K][64].  Bit-identical per pair to
+// adaptive.analyse_histo (the reference's AnalyseHisto integer+double
+// semantics).
 void sjpeg_analyse_histo_nodes(const int64_t* histos, int B,
                                const uint8_t* quants, int K,
                                const uint8_t* min_quant, int qdelta_max,

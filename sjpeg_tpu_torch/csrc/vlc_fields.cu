@@ -4,7 +4,7 @@
 // from.
 //
 // Replaces no TPU kernel: the JAX package derives the fields and counts in
-// XLA glue (sjpeg_tpu/engine.py _interleave_quantized and _grouped_stats),
+// XLA glue (sjpeg_tpu/engine.py's interleaved quantize and grouped stats),
 // and so did the port, as about 100 torch launches a batch: a quantize in
 // int64, a zigzag gather, a cumulative-max scan along each row for the zero
 // runs and four scatter-adds, of which the AC one adds a zero for every

@@ -86,7 +86,6 @@ import torch
 
 from . import constants as C
 from . import headers, native, pipeline, riskiness, sharp_yuv, spec, state
-from .adaptive import analyse_histo
 from .huffman import (build_code_lut, k3_default_tables,
                       optimal_tables_from_freqs, trellis_cost_lens)
 from .ops import colorspace, fdct, huffman_device, lambda_fit, pack, \
@@ -436,78 +435,21 @@ def _coeff_histos(coeffs, n_images: int):
     return histo_l, histo_c
 
 
-def _tuned_qms(qms, histo_pair, param: EncoderParam, n_groups: int):
-    """Finalized (luma, chroma) matrices -> the same after the host lambda
-    fit of each table group, chroma first as the reference runs it, over
-    the group's [64, bins] histogram (the batched search's per-image
-    fits)."""
-    min_qmats = param.resolved_min_quant_matrices()
-    qms = list(qms)
-    for g in range(n_groups - 1, -1, -1):
-        qdelta_max = (param.qdelta_max_luma if g == 0
-                      else param.qdelta_max_chroma)
-        tuned = analyse_histo(histo_pair[g], qms[g]["quant"], min_qmats[g],
-                              qdelta_max)
-        qms[g] = spec.finalize_quant_matrix(tuned, min_qmats[g],
-                                            param.quantization_bias)
-    return qms
-
-
-def _interleave_quantized(coeffs, iquant, ibias, nb_blocks,
-                          n_images: int = 1, dc_codes=None):
-    """Quantize per component, interleave into MCU order, and derive the
-    zigzag VLC fields (int32 [N, 64] run/size/code, bool nz, [N] last),
-    the DC codes (the predictor resets per image; or the given
-    MCU-interleaved `dc_codes`) and each row's table group.
-    iquant/ibias: [2, 64] shared, or [B, 2, 64] per image."""
-    qbs = []
-    for c, coef in enumerate(coeffs):
-        g = 0 if c == 0 else 1
-        if iquant.dim() == 3:
-            qbs.append(quantize.per_image_quantize(
-                coef, iquant[:, g], ibias[:, g], n_images))
-        else:
-            qbs.append(quantize.quantize_blocks(coef, iquant[g], ibias[g]))
-    n_mcu = qbs[0].shape[0] // nb_blocks[0]
-    qinter = torch.cat([qb.reshape(n_mcu, nb, 64)
-                        for qb, nb in zip(qbs, nb_blocks)],
-                       dim=1).reshape(-1, 64)
-    rl = vlc.run_levels(qinter, torch.int32)
-    if dc_codes is None:
-        dcv = qinter[:, 0].reshape(n_mcu, sum(nb_blocks))
-        dc_cols, col = [], 0
-        for nb in nb_blocks:
-            codes = vlc.dc_diff_codes(dcv[:, col:col + nb].reshape(-1),
-                                      n_images)
-            dc_cols.append(codes.reshape(n_mcu, nb))
-            col += nb
-        dc_codes = torch.cat(dc_cols, dim=1).reshape(-1)
-    return rl, dc_codes, _slot_groups(nb_blocks, n_mcu, qinter.device)
-
-
 def _stage_batch_quantize(coeffs, iquant, ibias, with_stats: bool,
                           nb_blocks, n_images: int, stats_images: int,
                           dc_codes=None, valid=None):
     """-> ((VLC fields, DC codes, groups), frequencies or None).
     `dc_codes`: MCU-interleaved DC codes to use instead of the per-image
-    chain; `valid`: the blocks the frequencies count (all when None).  On
-    the card one vlc_fields launch quantizes the interleaved coefficients
-    and derives both; elsewhere the plain torch chain runs."""
-    if coeffs[0].is_cuda:
-        cinter, dc_codes, group = _interleave_coeffs(coeffs, iquant, ibias,
-                                                     nb_blocks, n_images,
-                                                     dc_codes)
-        rl, freqs = vlc_fields.vlc_fields(
-            cinter, dc_codes, group, iquant, ibias, stats_images=stats_images,
-            valid=valid, with_stats=with_stats)
-        return (rl, dc_codes, group), freqs
-    rl, dc_codes, group = _interleave_quantized(coeffs, iquant, ibias,
-                                                nb_blocks, n_images,
-                                                dc_codes)
-    if not with_stats:
-        return (rl, dc_codes, group), None
-    return (rl, dc_codes, group), vlc.grouped_stats(rl, dc_codes, group,
-                                                    stats_images, valid)
+    chain; `valid`: the blocks the frequencies count (all when None).  One
+    vlc_fields call quantizes the interleaved coefficients and derives
+    both."""
+    cinter, dc_codes, group = _interleave_coeffs(coeffs, iquant, ibias,
+                                                 nb_blocks, n_images,
+                                                 dc_codes)
+    rl, freqs = vlc_fields.vlc_fields(
+        cinter, dc_codes, group, iquant, ibias, stats_images=stats_images,
+        valid=valid, with_stats=with_stats)
+    return (rl, dc_codes, group), freqs
 
 
 def _interleave_coeffs(coeffs, iquant, ibias, nb_blocks, n_images: int = 1,
@@ -683,10 +625,10 @@ def _fit_on_device(histos, param: EncoderParam, flags, n_groups: int,
     [B, 2, 64] per image: (iquant, bias, quant), the finalized rows of
     `qms` (the param's matrices by default), with adaptive quantization
     after the lambda fit of each image (or of the batch) and table group.
-    The fit runs where the histograms are: one lambda_fit launch on a CUDA
-    device, whose rows stay there; its host twin lambda_fit_plain
-    otherwise.  The quant rows are the trellis's clamped matrices, and
-    `_host_matrices` reads them for the headers."""
+    The fit runs where the histograms are (ops/lambda_fit.lambda_fit: one
+    launch on a CUDA device, whose rows stay there).  The quant rows are
+    the trellis's clamped matrices, and `_host_matrices` reads them for
+    the headers."""
     qms = _quant_matrices(param) if qms is None else qms
     quant = np.stack([qms[0]["quant"], qms[1]["quant"]]).astype(np.int32)
     if not flags["use_adaptive_quant"]:
@@ -695,11 +637,7 @@ def _fit_on_device(histos, param: EncoderParam, flags, n_groups: int,
     args = (quant, param.resolved_min_quant_matrices(),
             (param.qdelta_max_luma, param.qdelta_max_chroma),
             param.quantization_bias, n_groups)
-    if histos[0].device.type == "cuda":
-        rows = lambda_fit.lambda_fit(*histos, *args)
-    else:
-        with span("analysis"):
-            rows = lambda_fit.lambda_fit_plain(*histos, *args)
+    rows = lambda_fit.lambda_fit(*histos, *args)
     return tuple((r[0] if shared else r).to(device) for r in rows)
 
 

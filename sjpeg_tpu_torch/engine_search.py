@@ -15,9 +15,10 @@ It takes one of three routes, as the JAX engine does:
 
      colour, fDCT, int16 samples, histograms _stage_search_prep [torch]
      per pass: the node's quantizers         _derive_quant_arrays
-       per-image optimal tables              _search_component_freqs,
-                                             ops/huffman_device
        DC chain                              engine._dc_codes
+       quantize + symbol frequencies         engine._stage_batch_quantize,
+                                             ops/vlc_fields [CUDA kernel 10]
+       per-image optimal tables              ops/huffman_device
        fDCT + quantize + VLC + pack with
          per-image tables                    ops/sample_pack [CUDA kernel 1]
        per-image stream concatenation        ops/stream_concat [kernel 2]
@@ -62,8 +63,8 @@ from .dichotomy import (build_q_conv_table, build_q_tree, get_psnr,
                         psnr_err_threshold, psnr_tolerance_range,
                         replay_search_trace, size_tolerance_range)
 from .huffman import k3_default_tables, trellis_cost_lens
-from .ops import (colorspace, fdct, huffman_device, pack, quantize,
-                  sample_pack, stream_concat, vlc)
+from .ops import (colorspace, fdct, huffman_device, lambda_fit, pack,
+                  quantize, sample_pack, stream_concat)
 from .params import (TARGET_SIZE, EncoderParam, SearchHook, method_flags,
                      quant_matrices_for_quality)
 from .tools import estimate_quality
@@ -152,23 +153,6 @@ def _stage_search_prep(src, src_kind: str, yuv_mode: int, width: int,
     return prep
 
 
-def _search_component_freqs(coeffs, iq3, ib3, n_images: int):
-    """Per-image symbol frequencies straight from the per-component
-    coefficients, no MCU interleave -> ([B, 2, 12], [B, 2, 256])."""
-    fdc = fac = 0
-    for c, coef in enumerate(coeffs):
-        g = 0 if c == 0 else 1
-        qb = quantize.per_image_quantize(coef, iq3[:, g], ib3[:, g],
-                                         n_images)
-        rl = vlc.run_levels(qb, torch.int32)
-        dcc = vlc.dc_diff_codes(qb[:, 0], n_images)
-        grp = torch.full((qb.shape[0],), g, dtype=torch.int32,
-                         device=qb.device)
-        d, a = vlc.grouped_stats(rl, dcc, grp, n_images)
-        fdc, fac = fdc + d, fac + a
-    return fdc.reshape(n_images, 2, -1), fac.reshape(n_images, 2, -1)
-
-
 def _fused_pack_from_samples(sinter, dc_codes, group, iq3, ib3, dcl3, acl3,
                              n_images: int, bucket: int):
     """Per-image-table fDCT + quantize + VLC + pack from the cached
@@ -248,13 +232,16 @@ def _stage_search_loop_size(prep, quants_nodes, thr: int, conv_lo: int,
         node = (1 << p) - 1 + path
         iq3, ib3 = _derive_quant_arrays(
             _node_quants(qn_all, node, per_image_mats), q_bias)
+        dc_codes = engine._dc_codes(coeffs, iq3, ib3, nb_blocks, B)
         if optimize_size:
+            _, freqs = engine._stage_batch_quantize(
+                coeffs, iq3, ib3, True, nb_blocks, B, B, dc_codes=dc_codes)
             dcl, acl, nbs, desc = huffman_device.luts_and_desc_from_freqs(
-                *_search_component_freqs(coeffs, iq3, ib3, B), n_groups)
+                freqs[0].reshape(B, 2, -1), freqs[1].reshape(B, 2, -1),
+                n_groups)
             desc_all[p] = huffman_device.desc_to_flat(nbs, desc)
             nb_sum = (nbs[:, 0] + nbs[:, 2] if n_groups == 1
                       else nbs.sum(dim=1)).to(torch.int64)
-        dc_codes = engine._dc_codes(coeffs, iq3, ib3, nb_blocks, B)
         words, totals = _fused_pack_from_samples(
             prep["sinter"], dc_codes, prep["group"], iq3, ib3, dcl, acl, B,
             bucket)
@@ -425,8 +412,11 @@ class _Search:
         qms = self.finalize(self.hooks[i].next_matrices())
         if not self.flags["use_adaptive_quant"]:
             return qms
-        return engine._tuned_qms(qms, self.histos[:, i], self.param,
-                                 self.n_groups)
+        p = self.param
+        return lambda_fit.fit_image(
+            self.histos[:, i], np.stack([qms[0]["quant"], qms[1]["quant"]]),
+            self.min_qmats, (p.qdelta_max_luma, p.qdelta_max_chroma),
+            p.quantization_bias, self.n_groups)
 
     def pass_matrices(self):
         """Every image's matrices for the next pass, its lambda fit

@@ -10,10 +10,10 @@ Huffman merge of the host table builds (`huffman_codesizes`, from
 (`analyse_histo_nodes`, from `adaptive.analyse_histo_nodes`).
 
 Unlike the JAX package's module there is no silent fallback: a failed
-build raises with g++'s output.  The NumPy and torch versions
+build raises with g++'s output.  The NumPy versions
 (`bitio.words_to_scan` / `stuff_bytes`, `huffman.merge_codesizes`,
-`adaptive._analyse_histo_nodes_torch`) are their parity twins, run only
-when asked for by name (or, for the fit, by SJPEG_ADAPTIVE_IMPL=torch).
+`adaptive.analyse_histo` per pair) are their parity twins, run only when
+asked for by name.
 """
 
 import ctypes

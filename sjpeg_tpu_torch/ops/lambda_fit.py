@@ -5,9 +5,10 @@ histograms that ops/quantize.store_histo left there.
 Replaces no TPU kernel (the JAX package fits on the host in NumPy); the
 arithmetic is csrc/fit_core.cuh's, bit-exact to adaptive.analyse_histo
 followed by spec.finalize_quant_matrix.  `lambda_fit` launches the kernel
-for CUDA tensors and raises for any other; its plain twin is the host
-route, `lambda_fit_plain`: the same fit and finalize in NumPy on the
-fetched histograms, as the engine runs them for host histograms.
+for CUDA tensors and runs its plain twin, the host route, for any other:
+`lambda_fit_plain`, the same fit and finalize in NumPy on the fetched
+histograms, image by image through `fit_image`, the one host fit (the
+batched search's pass-by-pass fits call it too).
 
 The param's matrices, min_quant rows and HISTO_WEIGHT are uploaded once a
 parameter set and device, and kept (the single-image search's passes each
@@ -22,6 +23,7 @@ import torch
 
 from .. import adaptive, kernels, spec
 from .. import constants as C
+from ..utils.profiling import span
 
 _BINS = C.MAX_HISTO_DCT_COEFF
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -73,13 +75,18 @@ def lambda_fit(histos_l, histos_c, quant, min_quant, qdelta_max, q_bias: int,
     the chroma group is not tuned (it keeps `quant[1]`).
     -> int32 (iquant, bias, quant) rows, each [B, 2, 64] on the device:
     spec.finalize_quant_matrix's `iquant` and `bias` of the tuned matrix,
-    and the matrix itself.  Launches one kernel on the current stream, no
-    wait; raises for tensors off CUDA."""
-    _check(histos_l, histos_c, quant, min_quant, qdelta_max)
+    and the matrix itself.  On a CUDA device, launches one kernel on the
+    current stream, no wait; elsewhere runs `lambda_fit_plain` inside the
+    `sjpeg.analysis` span."""
     dev = histos_l.device
-    if dev.type != "cuda" or histos_c.device != dev:
-        raise ValueError(f"lambda_fit: no kernel for {dev}; the host route "
-                         "is lambda_fit_plain")
+    if dev.type != "cuda":
+        with span("analysis"):
+            return lambda_fit_plain(histos_l, histos_c, quant, min_quant,
+                                    qdelta_max, q_bias, n_groups)
+    _check(histos_l, histos_c, quant, min_quant, qdelta_max)
+    if histos_c.device != dev:
+        raise ValueError("lambda_fit: luma and chroma histograms on "
+                         f"{dev} and {histos_c.device}")
     if not (histos_l.is_contiguous() and histos_c.is_contiguous()):
         raise ValueError("lambda_fit takes contiguous histograms")
     b = histos_l.numel() // (64 * _BINS)
@@ -103,24 +110,37 @@ def lambda_fit(histos_l, histos_c, quant, min_quant, qdelta_max, q_bias: int,
 lambda_fit.launches = 0
 
 
+def fit_image(histo_pair, quant, min_quant, qdelta_max, q_bias: int,
+              n_groups: int) -> list:
+    """One image's host fit: adaptive.analyse_histo of each tuned group
+    (histo_pair: its (luma, chroma) [64, bins] histograms) and
+    spec.finalize_quant_matrix of both -> [2] finalized matrix dicts.
+    quant: [2, 64] finalized matrices; the other arguments as
+    `lambda_fit`'s."""
+    out = []
+    for g in range(2):
+        q = np.asarray(quant[g], dtype=np.uint8)
+        if g < n_groups:
+            q = adaptive.analyse_histo(histo_pair[g], q, min_quant[g],
+                                       qdelta_max[g])
+        out.append(spec.finalize_quant_matrix(q, min_quant[g], q_bias))
+    return out
+
+
 def lambda_fit_plain(histos_l, histos_c, quant, min_quant, qdelta_max,
                      q_bias: int, n_groups: int):
     """`lambda_fit` by the host route, on any device: one fetch of the
-    histograms, adaptive.analyse_histo of each (image, tuned group) and
-    spec.finalize_quant_matrix -> the same three int32 [B, 2, 64] rows, on
-    the histograms' device."""
+    histograms, `fit_image` of each image -> the same three int32
+    [B, 2, 64] rows, on the histograms' device."""
     _check(histos_l, histos_c, quant, min_quant, qdelta_max)
     hh = torch.stack([histos_l, histos_c]).cpu().numpy().reshape(
         2, -1, 64, _BINS)
     b = hh.shape[1]
     out = np.empty((3, b, 2, 64), dtype=np.int32)
     for i in range(b):
-        for g in range(2):
-            q = np.asarray(quant[g], dtype=np.uint8)
-            if g < n_groups:
-                q = adaptive.analyse_histo(hh[g, i], q, min_quant[g],
-                                           qdelta_max[g])
-            fin = spec.finalize_quant_matrix(q, min_quant[g], q_bias)
+        fins = fit_image(hh[:, i], quant, min_quant, qdelta_max, q_bias,
+                         n_groups)
+        for g, fin in enumerate(fins):
             out[:, i, g] = fin["iquant"], fin["bias"], fin["quant"]
     t = torch.from_numpy(out).to(histos_l.device)
     return t[0], t[1], t[2]

@@ -20,26 +20,6 @@ def quantize_values(coeffs: torch.Tensor, iquant, bias) -> torch.Tensor:
     return torch.where(c < 0, -q, q)
 
 
-def quantize_blocks(coeffs: torch.Tensor, iquant: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """[N, 64] coefficients -> [N, 64] int32 signed quantized values.
-
-    `iquant`, `bias`: [64] int (uint16 ranges) from finalize_quant_matrix.
-    """
-    return quantize_values(coeffs, iquant.to(torch.int64)[None, :],
-                           bias.to(torch.int64)[None, :]).to(torch.int32)
-
-
-def per_image_quantize(coeffs: torch.Tensor, iquant: torch.Tensor,
-                       bias: torch.Tensor, n_images: int) -> torch.Tensor:
-    """Quantize one component's [N, 64] coefficients (image-major) with
-    per-image [B, 64] iquant/bias rows -> [N, 64] int32."""
-    c3 = coeffs.reshape(n_images, -1, 64)
-    q = quantize_values(c3, iquant.to(torch.int64)[:, None, :],
-                        bias.to(torch.int64)[:, None, :])
-    return q.reshape(-1, 64).to(torch.int32)
-
-
 def quantize_error(coeffs: torch.Tensor, iquant, bias,
                    quant) -> torch.Tensor:
     """Per-block sum of squared reconstruction error in (|c| >> AC_BITS)

@@ -5,8 +5,9 @@ one launch of csrc/vlc_fields.cu.
 Replaces no TPU kernel (the JAX package derives them in XLA glue); the
 arithmetic is csrc/fields_core.cuh's, bit-exact to the plain twin
 `vlc_fields_plain`: the bias quantizer (ops/quantize), vlc.run_levels and
-vlc.grouped_stats, the chain the engine runs off the card.  `vlc_fields`
-launches the kernel for CUDA tensors and runs the plain twin for CPU ones.
+vlc.grouped_stats.  `vlc_fields` launches the kernel for CUDA tensors and
+runs the plain twin for CPU ones; the engine's quantize stage
+(`engine._stage_batch_quantize`) calls it on every device.
 """
 
 import ctypes

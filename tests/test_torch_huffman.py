@@ -287,27 +287,28 @@ def _quant_rows(b):
 @pytest.mark.parametrize("mode", [C.YUV_420, C.YUV_400])
 @pytest.mark.parametrize("per_image", [False, True])
 def test_interleave_and_grouped_stats_match_jax(mode, per_image):
-    """_interleave_quantized (int32 fields, per-image DC reset, groups) and
-    vlc.grouped_stats (per-image [B, 2, 12] / [B, 2, 256] with ZRL and EOB
-    counts, or unbatched for the whole batch) == the JAX engine's."""
+    """The engine's quantize stage on the CPU (`_stage_batch_quantize`:
+    _interleave_coeffs, then vlc_fields' plain twin; int32 fields,
+    per-image DC reset, groups, and per-image [B, 2, 12] / [B, 2, 256]
+    frequencies with ZRL and EOB counts, or unbatched for the whole batch)
+    == the JAX engine's _interleave_quantized + _grouped_stats."""
     b, mcu = 3, 6
     cs = _coeffs(np.random.RandomState(35), mode, b, mcu)
     shared, per = _quant_rows(b)
     iq, ib = per if per_image else shared
-    rl, dc, group = engine._interleave_quantized(
-        [torch.from_numpy(c) for c in cs], *state.arrays_to_device(
-            iq, ib, device="cpu"), NB[mode], b)
     jrl, jdc, jgroup = jengine._interleave_quantized(
         [jnp.asarray(c) for c in cs], jnp.asarray(iq), jnp.asarray(ib),
         NB[mode], b)
-    for k in ("nz", "run", "size", "code", "last"):
-        assert rl[k].dtype in (torch.bool, torch.int32, torch.int64)
-        np.testing.assert_array_equal(rl[k].numpy(), np.asarray(jrl[k]))
-    assert rl["run"].dtype == torch.int32
-    np.testing.assert_array_equal(dc.numpy(), np.asarray(jdc))
-    np.testing.assert_array_equal(group.numpy(), np.asarray(jgroup))
     for stats_images in (1, b):
-        got = vlc.grouped_stats(rl, dc, group, stats_images)
+        (rl, dc, group), got = engine._stage_batch_quantize(
+            [torch.from_numpy(c) for c in cs], *state.arrays_to_device(
+                iq, ib, device="cpu"), True, NB[mode], b, stats_images)
+        for k in ("nz", "run", "size", "code", "last"):
+            assert rl[k].dtype in (torch.bool, torch.int32, torch.int64)
+            np.testing.assert_array_equal(rl[k].numpy(), np.asarray(jrl[k]))
+        assert rl["run"].dtype == torch.int32
+        np.testing.assert_array_equal(dc.numpy(), np.asarray(jdc))
+        np.testing.assert_array_equal(group.numpy(), np.asarray(jgroup))
         want = jengine._grouped_stats(jrl, jdc, jgroup, stats_images)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -6,8 +6,10 @@ adaptive.analyse_histo + spec.finalize_quant_matrix, on edge cases (empty
 and one-bin histograms, counts whose error sums round in float32, the
 density and correlation tests at their edges, lambda clamped and left at
 its default, matrices of 1 and 255, min_quant clamps, qdelta_max 1 and
-12) and seeded random histograms; the wrapper's checks; the engine's
-matrices rebuilt from card-shaped rows.  On the card (`cuda`): the kernel
+12) and seeded random histograms; the wrapper's checks; the host route
+(`lambda_fit` on CPU histograms, `lambda_fit_plain`, the search's
+per-image fit) against analyse_histo; the engine's matrices rebuilt from
+card-shaped rows.  On the card (`cuda`): the kernel
 against the host route, per image and shared, with one and two groups;
 encode_batch's bytes against the CPU path's for methods 1, 3, 4 and 7 under
 AUTO; one launch a sub-batch; no histogram fetch ahead of the quantizer.
@@ -319,31 +321,78 @@ def test_fit_core_host_build_matches_host_route(fit_core, name):
         assert (got[2] == min_quant).any()
 
 
-def test_lambda_fit_plain_matches_the_engine_host_fit():
-    """lambda_fit_plain (the kernel's plain twin) == the engine's per-image
-    host fit (`_tuned_qms`, the batched search's) per image and shared, one
-    and two groups; `_fit_on_device` on host histograms returns its rows,
-    and `_host_matrices` rebuilds from them the matrix dicts that
-    `_tuned_qms` holds."""
+def _fit_inputs():
+    """Three images' (luma, chroma) histograms, a param with a tuned chroma
+    group, and lambda_fit's matrix arguments."""
     rng = np.random.RandomState(18)
     b = 3
     hl = torch.from_numpy(np.stack([_photo_histo(rng) for _ in range(b)]))
     hc = torch.from_numpy(np.stack([_photo_histo(rng, 0.3)
                                     for _ in range(b)]))
     param = EncoderParam(quality=60, qdelta_max_chroma=3)
-    flags = {"use_adaptive_quant": True}
     base = engine._quant_matrices(param)
     args = (np.stack([base[0]["quant"], base[1]["quant"]]),
             param.resolved_min_quant_matrices(),
             (param.qdelta_max_luma, param.qdelta_max_chroma),
             param.quantization_bias)
+    return hl, hc, param, base, args
+
+
+def _histos(hl, hc, shared):
+    return ((hl.sum(0, dtype=torch.int32), hc.sum(0, dtype=torch.int32))
+            if shared else (hl, hc))
+
+
+class _FixedHook:
+    """A search hook that proposes the param's matrices every pass."""
+
+    def __init__(self, param):
+        self.quants = param.resolved_quant_matrices()
+
+    def next_matrices(self):
+        return self.quants
+
+
+def test_lambda_fit_plain_matches_the_engine_host_fit():
+    """lambda_fit_plain (the kernel's plain twin) == the batched search's
+    per-image host fit (`_Search.make_qms`) == analyse_histo of each tuned
+    group, chroma first as the reference runs it, then
+    finalize_quant_matrix; per image and shared, one and two groups.
+    `_fit_on_device` on host histograms returns its rows, and
+    `_host_matrices` rebuilds from them the matrix dicts that make_qms
+    gives."""
+    from sjpeg_tpu_torch import engine_search
+
+    hl, hc, param, base, args = _fit_inputs()
+    b = hl.shape[0]
+    flags = {"use_adaptive_quant": True}
+    minq = param.resolved_min_quant_matrices()
+    search = engine_search._Search(
+        torch.zeros((1, 16, 16, 3), dtype=torch.uint8), "rgb", C.YUV_420,
+        16, 16, EncoderParam(quality=60, qdelta_max_chroma=3)
+        .set_target_size(1000, passes=3), 4.0)
+    search.hooks = [_FixedHook(param)] * b
     for n_groups in (1, 2):
+        search.n_groups = n_groups
         for shared in (False, True):
-            histos = ((hl.sum(0, dtype=torch.int32),
-                       hc.sum(0, dtype=torch.int32)) if shared else (hl, hc))
+            histos = _histos(hl, hc, shared)
             hh = torch.stack(histos).numpy().reshape(2, -1, 64, BINS)
-            per_qms = [engine._tuned_qms(base, hh[:, i], param, n_groups)
-                       for i in range(hh.shape[1])]
+            per_qms = []
+            for i in range(hh.shape[1]):
+                qms = list(base)
+                for g in range(n_groups - 1, -1, -1):
+                    tuned = adaptive.analyse_histo(
+                        hh[g, i], qms[g]["quant"], minq[g], args[2][g])
+                    qms[g] = spec.finalize_quant_matrix(
+                        tuned, minq[g], param.quantization_bias)
+                per_qms.append(qms)
+            search.histos = hh.astype(np.int64)
+            for i, want in enumerate(per_qms):
+                have = search.make_qms(i)
+                for g in range(2):
+                    assert want[g].keys() == have[g].keys()
+                    for k in want[g]:
+                        np.testing.assert_array_equal(want[g][k], have[g][k])
             got = lambda_fit.lambda_fit_plain(*histos, *args, n_groups)
             rows = [r[0] for r in got] if shared else list(got)
             for k, row in zip(("iquant", "bias", "quant"), rows):
@@ -365,12 +414,30 @@ def test_lambda_fit_plain_matches_the_engine_host_fit():
                         np.testing.assert_array_equal(want[g][k], have[g][k])
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_lambda_fit_on_cpu_histograms_runs_the_host_route(shared):
+    """lambda_fit on CPU histograms returns exactly lambda_fit_plain's rows
+    (one and two groups), launches nothing, and times the fit as the
+    `sjpeg.analysis` span."""
+    hl, hc, _, _, args = _fit_inputs()
+    histos = _histos(hl, hc, shared)
+    timer = profiling.StageTimer()
+    lambda_fit.lambda_fit.launches = 0
+    for n_groups in (1, 2):
+        with profiling.timing(timer):
+            got = lambda_fit.lambda_fit(*histos, *args, n_groups)
+        want = lambda_fit.lambda_fit_plain(*histos, *args, n_groups)
+        for g, w in zip(got, want):
+            assert g.device.type == "cpu" and g.dtype == torch.int32
+            assert torch.equal(g, w)
+    assert lambda_fit.lambda_fit.launches == 0
+    assert timer.counts["analysis"] == 2
+
+
 def test_lambda_fit_raises_off_cuda_and_on_bad_inputs():
     h = torch.zeros((2, 64, BINS), dtype=torch.int32)
     q = np.full((2, 64), 16, np.uint8)
     m = np.ones((2, 64), np.uint8)
-    with pytest.raises(ValueError, match="no kernel"):
-        lambda_fit.lambda_fit(h, h, q, m, (12, 1), 0x78, 2)
     with pytest.raises(TypeError):
         lambda_fit.lambda_fit(h.long(), h, q, m, (12, 1), 0x78, 2)
     with pytest.raises(ValueError, match="histograms"):

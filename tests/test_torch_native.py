@@ -6,9 +6,10 @@ stuff_bytes against sjpeg_tpu.bitio on streams with runs of 0xFF, every
 bit length mod 8, one word and none; merge_streams against
 sjpeg_tpu.native's NumPy merge; huffman_codesizes against the port's
 Python merge on random and adversarial rows; the node fit with 1 and 4
-threads against sjpeg_tpu.adaptive.analyse_histo per (image, node) pair
-and the port's torch twin.  Then where the library lies, that a broken
-compiler raises instead of falling back, and the fit's switch."""
+threads against sjpeg_tpu.adaptive.analyse_histo per (image, node) pair,
+and the port's adaptive.analyse_histo_nodes, which runs it.  Then where
+the library lies, and that a broken compiler raises instead of falling
+back."""
 
 import numpy as np
 import pytest
@@ -144,8 +145,9 @@ def _fit_cases():
 @pytest.mark.parametrize("case", range(4))
 def test_node_fit_matches_jax_per_pair(case, threads, monkeypatch):
     """Every (image, node) pair == sjpeg_tpu.adaptive.analyse_histo (its
-    NumPy fit, pinned so that the JAX side loads no library), and == the
-    port's torch twin."""
+    NumPy fit, pinned so that the JAX side loads no library), and the
+    port's adaptive.analyse_histo_nodes (duplicate nodes fitted once)
+    returns the same."""
     monkeypatch.setenv("SJPEG_ADAPTIVE_IMPL", "numpy")
     histos, quants, minq, qd = _fit_cases()[case]
     got = native.analyse_histo_nodes(histos, quants, minq, qd,
@@ -157,25 +159,9 @@ def test_node_fit_matches_jax_per_pair(case, threads, monkeypatch):
                                                    minq, qd),
                 err_msg=f"image {i}, node {k}")
     np.testing.assert_array_equal(
-        got, adaptive._analyse_histo_nodes_torch(histos, quants, minq, qd))
+        got, adaptive.analyse_histo_nodes(histos, quants, minq, qd))
     np.testing.assert_array_equal(
         got, jadaptive.analyse_histo_nodes(histos, quants, minq, qd))
-
-
-@pytest.mark.parametrize("impl,twin", [("", False), ("torch", True)])
-def test_node_fit_switch(impl, twin, monkeypatch):
-    """adaptive.analyse_histo_nodes runs the C++ fit unless
-    SJPEG_ADAPTIVE_IMPL=torch names the torch twin."""
-    monkeypatch.setenv("SJPEG_ADAPTIVE_IMPL", impl)
-    calls = []
-    real = adaptive._analyse_histo_nodes_torch
-    monkeypatch.setattr(adaptive, "_analyse_histo_nodes_torch",
-                        lambda *a: calls.append(1) or real(*a))
-    histos, quants, minq, qd = _fit_cases()[1]
-    got = adaptive.analyse_histo_nodes(histos, quants[:2], minq, qd)
-    assert bool(calls) == twin
-    np.testing.assert_array_equal(got, native.analyse_histo_nodes(
-        histos, quants[:2], minq, qd, C.HISTO_WEIGHT))
 
 
 def test_library_is_built_into_the_port_build_dir():

@@ -98,13 +98,16 @@ def test_fdct_matches_jax(lo, hi):
 
 @pytest.mark.parametrize("q", [100, 75, 30])
 def test_quantize_matches_jax(q):
+    """quantize_values with broadcast [1, 64] rows == the JAX
+    quantize_blocks."""
     coeffs = np.random.RandomState(4).randint(-32768, 32768, (256, 64))
     coeffs = coeffs.astype(np.int32)
     qm = _quant(q)[0]
     iq = qm["iquant"].astype(np.int32)
     ib = qm["bias"].astype(np.int32)
-    got = quantize.quantize_blocks(torch.from_numpy(coeffs),
-                                   torch.from_numpy(iq), torch.from_numpy(ib))
+    got = quantize.quantize_values(torch.from_numpy(coeffs),
+                                   torch.from_numpy(iq).long()[None, :],
+                                   torch.from_numpy(ib).long()[None, :])
     _eq(got, jquant.quantize_blocks(jnp.asarray(coeffs), jnp.asarray(iq),
                                     jnp.asarray(ib)))
 

@@ -465,9 +465,12 @@ def test_encode_bytes_on_gpu_match_cpu(method):
 def test_encode_rgb_runs_no_scan_and_no_stats_scatter(tmp_path, method):
     """A traced method-4 or method-7 encode_rgb: one vlc_fields kernel, no
     torch scan (the cumulative maximum of vlc.run_levels), and no scatter
-    kernel but the coefficient histograms' (one a store_histo call)."""
+    kernel but the coefficient histograms' (one a store_histo call).  The
+    trace opens with prime_trace: late in a process the profiler can lose
+    a session's first device records."""
     _need_cuda()
     from unittest import mock
+    from benchmark import tracing
     dev = torch.device("cuda")
     img = _photo(256, 320, 5)
     param = EncoderParam(yuv_mode=C.YUV_420, use_trellis=method == 7)
@@ -476,6 +479,7 @@ def test_encode_rgb_runs_no_scan_and_no_stats_scatter(tmp_path, method):
     with mock.patch.object(quantize, "store_histo",
                            wraps=quantize.store_histo) as histos, \
             profiling.device_trace(str(tmp_path)):
+        tracing.prime_trace(dev)
         engine.encode_rgb(img, param, device=dev)
         torch.cuda.synchronize()
     events = json.loads(next(tmp_path.glob("*.pt.trace.json")).read_text())[
