@@ -28,6 +28,10 @@ against the plain PyTorch versions on the same card:
   kernel against its plain twin on coefficients and on the trellis's
   levels, on the main batch and a 12-MP photo; its device time, ptxas
   figures and launches a request in the benchmark cells' entries);
+  scan_stuff (the padding-and-stuffing kernel against words_to_scan on
+  the main batch's streams and a 12-MP photo's; its device time beside
+  its bound, the host stuffing's time and the tail's join of headers and
+  scans; launches a request in the four benchmark cells' entries);
 - method 7 (method 4 with trellis quantization), through trellis,
   merge_codesizes, vlc_pack and stream_concat.  Phases: tr_parity (the
   trellis op: a work pass, class starts, a ranking and the search; with
@@ -237,13 +241,19 @@ def stateful_hook():
 def plain_forced():
     """Patch the engine's kernel calls with the plain versions (this
     script only: the package itself never falls back).  fdct, quant_pack,
-    the table build and the sharp sweeps are patched on their own modules,
-    which every caller reads them from."""
+    the table build, the sharp sweeps and scan_stuff (its host route on
+    the fetched words) are patched on their own modules, which every
+    caller reads them from."""
     from sjpeg_tpu_torch.ops import (fdct, huffman_device, lambda_fit,
                                      merge_codesizes, quant_pack,
-                                     sample_pack, sharp_yuv, stream_concat,
-                                     trellis, vlc_fields, vlc_pack)
+                                     sample_pack, scan_stuff, sharp_yuv,
+                                     stream_concat, trellis, vlc_fields,
+                                     vlc_pack)
     from sjpeg_tpu_torch.sharp_yuv import sharp_iterate_plain
+
+    def stuff_on_host(words, totals):
+        return tuple(t.to(words.device) for t in scan_stuff.scan_stuff_plain(
+            words.cpu(), totals.cpu()))
     packs = dict(
         sample_pack=mock.Mock(sample_pack=sample_pack.sample_pack_plain),
         stream_concat=mock.Mock(
@@ -264,7 +274,8 @@ def plain_forced():
             mock.patch.object(lambda_fit, "lambda_fit",
                               lambda_fit.lambda_fit_plain), \
             mock.patch.object(vlc_fields, "vlc_fields",
-                              vlc_fields.vlc_fields_plain):
+                              vlc_fields.vlc_fields_plain), \
+            mock.patch.object(scan_stuff, "scan_stuff", stuff_on_host):
         yield
 
 
@@ -279,8 +290,9 @@ def counted_wrappers() -> dict:
     """{kernel: its wrapper}, each wrapper counting its own launches in
     `.launches`."""
     from sjpeg_tpu_torch.ops import (fdct, lambda_fit, merge_codesizes,
-                                     quant_pack, sample_pack, stream_concat,
-                                     trellis, vlc_fields, vlc_pack)
+                                     quant_pack, sample_pack, scan_stuff,
+                                     stream_concat, trellis, vlc_fields,
+                                     vlc_pack)
     from sjpeg_tpu_torch.ops import riskiness as risk_dev
     from sjpeg_tpu_torch.ops import sharp_yuv as sharp_ops
     return {"sharp_yuv": sharp_ops.sharp_iterate,
@@ -293,7 +305,8 @@ def counted_wrappers() -> dict:
             "vlc_pack": vlc_pack.vlc_pack,
             "quant_pack": quant_pack.quant_pack,
             "trellis": trellis.trellis_quantize,
-            "stream_concat": stream_concat.stream_concat}
+            "stream_concat": stream_concat.stream_concat,
+            "scan_stuff": scan_stuff.scan_stuff}
 
 
 def run_counted(fn):
@@ -304,6 +317,14 @@ def run_counted(fn):
         k.launches = 0
     out = fn()
     return out, {k: f.launches for k, f in counted.items()}
+
+
+def host_words(words: torch.Tensor, totals_np) -> np.ndarray:
+    """The used word columns of [B, bucket] stream words, fetched ->
+    [B, ncols] uint32: what the host stuffing (native.words_to_scan)
+    reads."""
+    ncols = max(1, -(-int(totals_np.max()) // 32))
+    return words[:, :ncols].contiguous().cpu().numpy().view(np.uint32)
 
 
 def max_err(pairs) -> int:
@@ -441,8 +462,8 @@ def main() -> int:
     from sjpeg_tpu_torch import engine, kernels, pipeline, state
     from sjpeg_tpu_torch.huffman import k3_default_tables
     from sjpeg_tpu_torch.ops import (colorspace, fdct, merge_codesizes,
-                                     quantize, sample_pack, stream_concat,
-                                     vlc_pack)
+                                     quantize, sample_pack, scan_stuff,
+                                     stream_concat, vlc_pack)
 
     dev = torch.device(DEVICE)
     card = gpu_name_and_limit()
@@ -643,14 +664,18 @@ def main() -> int:
         si, d, g, *tables))
     o_, t_ = stage("stream_concat", lambda: stream_concat.stream_concat(
         w_, b_, BATCH, bucket))
-    tn = t_.cpu().numpy()
-    wn = stage("fetch", lambda: engine.fetch_streams_batch(o_, tn))
+    sc_, ln_ = stage("scan_stuff", lambda: scan_stuff.scan_stuff(o_, t_))
+
+    def fetch_scans():
+        tn, ln = torch.stack([t_, ln_]).cpu().numpy()
+        return tn, engine.fetch_scan_rows(sc_, ln)
+
+    tn, scans = stage("fetch", fetch_scans)
     stage("host_tail", lambda: [engine._assemble_jpeg(
-        layout, param, qms, k3_default_tables(),
-        engine._finalize_scan_bytes(wn[i], int(tn[i])))
-        for i in range(BATCH)])
-    emit("breakdown", gpu=card, ms=stages, fetched_words=int(wn.size))
-    tail_inputs = (wn, tn, stages["host_tail"])
+        layout, param, qms, k3_default_tables(), sc) for sc in scans])
+    emit("breakdown", gpu=card, ms=stages,
+         fetched_bytes=int(len(scans) * max(map(len, scans))))
+    tail_inputs = (host_words(o_, tn), tn, stages["host_tail"])
 
     # ---- kernels line ---------------------------------------------------
     used_words = int(((bits.long() + 31) // 32).sum())
@@ -691,6 +716,8 @@ def main() -> int:
     rows.append(lambda_fit_phase(card, rgb))
     torch.cuda.empty_cache()
     rows.append(vlc_fields_phase(card, rgb, logs))
+    torch.cuda.empty_cache()
+    rows.append(scan_stuff_phase(card, rgb, logs))
     torch.cuda.empty_cache()
     by_name = {r["name"]: r for r in rows}
     tr_rows, tr_table_err = trellis_phases(card, rgb)
@@ -1069,7 +1096,8 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     from sjpeg_tpu_torch import constants as C
     from sjpeg_tpu_torch import engine, kernels, pipeline
     from sjpeg_tpu_torch.ops import (huffman_device, merge_codesizes,
-                                     sample_pack, stream_concat, vlc_pack)
+                                     sample_pack, scan_stuff, stream_concat,
+                                     vlc_pack)
     from sjpeg_tpu_torch.params import method_flags
 
     dev = torch.device(DEVICE)
@@ -1251,18 +1279,19 @@ def method4_phases(card: str, rgb: np.ndarray, vlc_long_err: int) -> list:
     o_, t_ = stage("stream_concat", lambda: stream_concat.stream_concat(
         w_, b_, BATCH, bucket))
 
+    sc_, ln_ = stage("scan_stuff", lambda: scan_stuff.scan_stuff(o_, t_))
+
     def fetch():
-        tn = t_.cpu().numpy()
-        return (tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy(),
+        _, ln = torch.stack([t_, ln_]).cpu().numpy()
+        return (engine.fetch_scan_rows(sc_, ln), desc.cpu().numpy(),
                 engine._host_matrices(qa[2], param, BATCH))
 
-    tn, wn, flat, qms = stage("fetch", fetch)
+    scans, flat, qms = stage("fetch", fetch)
     stage("host_tail", lambda: [engine._assemble_jpeg(
         layout, param, qms[i], huffman_device.tables_from_flat(flat, i, 2),
-        engine._finalize_scan_bytes(wn[i], int(tn[i])))
-        for i in range(BATCH)])
+        scans[i]) for i in range(BATCH)])
     emit("m4_breakdown", gpu=card, ms=stages, any_reads=any_reads,
-         fetched_words=int(wn.size))
+         fetched_bytes=int(len(scans) * max(map(len, scans))))
 
     # ---- kernel rows ----------------------------------------------------
     coded = (fields[1][:, 1:] > 0)
@@ -1501,6 +1530,111 @@ def vlc_fields_phase(card: str, rgb: np.ndarray, logs: dict) -> dict:
         per_request=per_request, ptxas=ptxas)
 
 
+def scan_stuff_phase(card: str, rgb: np.ndarray, logs: dict) -> dict:
+    """scan_stuff on the main batch's method-0 streams (16 x 1024^2 4:2:0,
+    the engine's bucket) and on a 12-MP photo's (4:2:0, the staged path's
+    worst-case bucket of 64 words a block): every row exact against
+    native.words_to_scan on the fetched words; the op's device µs a call
+    (both launches, torch.profiler) beside its bound (the used words and
+    totals read, the tile counts written and read, the stuffed bytes and
+    lengths written, over 3.35 TB/s), its CUDA-event ms, the host
+    stuffing's ms on the same rows, and the ms of what the host tail does
+    with the fetched rows instead: each row joined to its headers and EOI
+    (the one copy of each scan into its JPEG's bytes); then, in the
+    entries of the four benchmark cells, its launches a request (each
+    cell's first pool input from the benchmark's generator at this
+    script's seed, and its configuration's param).  Returns the
+    kernels-line row."""
+    from sjpeg_tpu_torch import engine, headers, native, pipeline, state
+    from sjpeg_tpu_torch import constants as C
+    from sjpeg_tpu_torch.huffman import k3_default_tables
+    from sjpeg_tpu_torch.ops import scan_stuff
+    from benchmark import harness
+    from benchmark.gen import photo as gen
+
+    dev = torch.device(DEVICE)
+    op = scan_stuff.scan_stuff
+    param = method0(C.YUV_420)
+    tables = state.tables_from_numpy(
+        *engine._quant_arrays(engine._quant_matrices(param)),
+        *engine._host_luts(k3_default_tables()), dev)
+    photo = make_rgb(1, 3024, 4032, SEED + 600)
+    errs, timing = {}, {}
+    for name, img in (("batch", rgb), ("photo", photo)):
+        b, h, w = img.shape[:3]
+        layout = pipeline.component_layout(C.YUV_420, w, h)
+        bucket = (engine._bucket(layout, w, h, 4.0) if name == "batch" else
+                  engine._blocks_per_image(layout) * 64)
+        words, totals = engine.encode_batch_core(
+            torch.from_numpy(img).to(dev), *tables, yuv_mode=C.YUV_420,
+            width=w, height=h, nb_blocks=tuple(layout.nb_blocks),
+            bucket=bucket, n_images=b)
+        scan, lengths = op(words, totals)
+        tn, ln = torch.stack([totals, lengths]).cpu().numpy()
+        got = engine.fetch_scan_rows(scan, ln)
+        wn = host_words(words, tn)
+        bits = [scan_stuff.scan_bits(t, bucket) for t in tn]
+
+        def host_stuffing():
+            return [native.words_to_scan(wn[i], bits[i]) for i in range(b)]
+
+        head = bytes(engine._jpeg_headers(
+            layout, param, engine._quant_matrices(param),
+            k3_default_tables()))
+
+        def join():
+            return [b"".join((head, row, headers.EOI)) for row in got]
+
+        want = host_stuffing()
+        errs[name] = sum(g.tobytes() != x for g, x in zip(got, want))
+        raw = sum((x + 7) // 8 for x in bits)
+        tiles = sum(-(-((x + 7) // 8) // 4096) for x in bits)
+        nbytes = 4 * sum((x + 31) // 32 for x in bits) + 8 * b \
+            + 8 * tiles + int(ln.sum())
+        call = (lambda words=words, totals=totals: op(words, totals))
+        timing[name] = {
+            "images": b, "bucket_words": bucket, "scan_bytes": raw,
+            "stuffed_bytes": int(ln.sum()), "ff_bytes": int(ln.sum()) - raw,
+            "used_tiles": tiles, "device_us": kernel_us(call, "scan_stuff"),
+            "ms": event_ms(call, 20), "host_ms": host_ms(host_stuffing, 3),
+            "join_ms": host_ms(join, 5), "bytes": nbytes,
+            "bound_us": nbytes / H100_BYTES_PER_S * 1e6}
+        del words, totals, scan, lengths
+    cells = {"m0_batch": "sjpeg-m0-420-q75.batch16x1024",
+             "default_batch": "sjpeg-default-q75.batch16x1024",
+             "photo": "sjpeg-default-q75.photo12mp",
+             "m7_photo": "sjpeg-m7-q75.photo12mp"}
+    per_request = {}
+    for name, workload in cells.items():
+        cell = harness.load_cell(workload)     # the cell's input and param
+        x = gen.pool({**cell.traffic, "pool": 1}, SEED, dev)[0]
+        p = harness.port_param(cell.config)
+        if cell.traffic["entry"] == "encode_batch":
+            call = (lambda x=x, p=p: engine.encode_batch(x, p, device=dev))
+        else:
+            call = (lambda x=x, p=p: engine.encode_rgb(x[0], p, device=dev))
+        call()
+        op.launches = 0
+        call()
+        per_request[name] = {"launches": op.launches}
+    ptxas = {e: ptxas_info(logs.get("scan_stuff", ""), e)
+             for e in global_names("scan_stuff")}
+    emit("scan_stuff", gpu=card, wrong_rows=errs, timing=timing,
+         per_request=per_request, ptxas=ptxas)
+    need(max(errs.values()) == 0,
+         "scan_stuff exact against words_to_scan on every row")
+    need({k: v["launches"] for k, v in per_request.items()}
+         == {"m0_batch": 1, "default_batch": 4, "photo": 1, "m7_photo": 1},
+         "one scan_stuff launch a batch, sub-batch or image")
+    t = timing["batch"]
+    return kernel_row(
+        "scan_stuff", "csrc/scan_stuff.cu",
+        "none: native.words_to_scan (host C++ in the JAX package)",
+        per_request["m0_batch"]["launches"], max(errs.values()), t["ms"],
+        t["host_ms"], t["bytes"], 0, device_us=t["device_us"],
+        timing=timing, per_request=per_request, ptxas=ptxas)
+
+
 def trellis_phases(card: str, rgb: np.ndarray) -> list:
     """The method-7 path on the same batch: tr_parity, tr_path, tr_cases,
     tr_timing and tr_breakdown; returns the trellis kernel row and the
@@ -1509,8 +1643,8 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     from sjpeg_tpu_torch import engine, kernels, pipeline, state
     from sjpeg_tpu_torch.huffman import trellis_cost_lens
     from sjpeg_tpu_torch.ops import (huffman_device, merge_codesizes,
-                                     sample_pack, stream_concat, trellis,
-                                     vlc_pack)
+                                     sample_pack, scan_stuff, stream_concat,
+                                     trellis, vlc_pack)
     from sjpeg_tpu_torch.params import method_flags
 
     dev = torch.device(DEVICE)
@@ -1699,18 +1833,19 @@ def trellis_phases(card: str, rgb: np.ndarray) -> list:
     o_, t_ = stage("stream_concat", lambda: stream_concat.stream_concat(
         w_, bb, BATCH, bucket))
 
+    sc_, ln_ = stage("scan_stuff", lambda: scan_stuff.scan_stuff(o_, t_))
+
     def fetch():
-        tn = t_.cpu().numpy()
-        return (tn, engine.fetch_streams_batch(o_, tn), desc.cpu().numpy(),
+        _, ln = torch.stack([t_, ln_]).cpu().numpy()
+        return (engine.fetch_scan_rows(sc_, ln), desc.cpu().numpy(),
                 engine._host_matrices(q_, param, BATCH))
 
-    tn, wn, flat, qms = stage("fetch", fetch)
+    scans, flat, qms = stage("fetch", fetch)
     stage("host_tail", lambda: [engine._assemble_jpeg(
         layout, param, qms[i], huffman_device.tables_from_flat(flat, i, 2),
-        engine._finalize_scan_bytes(wn[i], int(tn[i])))
-        for i in range(BATCH)])
+        scans[i]) for i in range(BATCH)])
     emit("tr_breakdown", gpu=card, ms=stages, any_reads=any_reads,
-         fetched_words=int(wn.size))
+         fetched_bytes=int(len(scans) * max(map(len, scans))))
 
     # ---- kernel row -----------------------------------------------------
     # each input read once (coefficients, groups, per-image matrices, rate
@@ -1959,7 +2094,7 @@ def search_phases(card: str, rgb: np.ndarray):
     emit("search_breakdown", gpu=card, ms=stages, passes_run=loop[-1],
          distinct_node_matrices=int(np.unique(
              nodes[0].reshape(-1, 128), axis=0).shape[0]),
-         fetched_words=int(picked[0].size))
+         fetched_bytes=sum(map(len, picked[0])))
     need(out == jpegs, "the staged search gives the same bytes")
     # the node fit in C++, and image 0's luma nodes by the NumPy fit per
     # pair, its reference, on the same histograms
@@ -2544,7 +2679,7 @@ def risk_kernel_phase(card: str, auto_batch: np.ndarray, photo: np.ndarray,
 
 PORT_SOURCES = ("fdct", "trellis", "merge_codesizes", "vlc_pack",
                 "stream_concat", "sharp_yuv", "risk_stats", "sample_pack",
-                "quant_pack")
+                "quant_pack", "scan_stuff")
 
 
 def port_launches(trace: dict) -> dict:
@@ -2883,7 +3018,8 @@ def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
                       tail_inputs, search_host: dict) -> None:
     """The port's C++ host helpers (sjpeg_tpu_torch.native): which version
     of each helper a method-4 size search and a shared-statistics encode
-    call (the C++ one, never a twin), the g++ build seconds, the main
+    call (the C++ one, never a twin, and words_to_scan neither, since the
+    card stuffs the scans), the g++ build seconds, the main
     batch's scan tails in C++ and in the NumPy twin (same words, same
     bytes), and the host stages that run them: the method-0 breakdown's
     host_tail, the search breakdown (its node fit, in C++ and by the NumPy
@@ -2916,7 +3052,11 @@ def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
             200_000, passes=8), device=dev)
         engine.encode_batch(rgb, method4(C.YUV_420), share_statistics=True,
                             device=dev)
-    impl = ("native" if all(calls["native"].values())
+    # the card stuffs every scan (scan_stuff), so words_to_scan runs in
+    # neither version there
+    card_stuffed = calls["native"]["words_to_scan"] == 0
+    impl = ("native" if all(v for k, v in calls["native"].items()
+                            if k != "words_to_scan")
             and not any(calls["twin"].values()) else "twin")
     scans = {}
     tail_ms = {}
@@ -2933,6 +3073,7 @@ def host_native_phase(card: str, rgb: np.ndarray, build_s: float,
                                               scans["native"]),
          breakdown_host_tail_ms=breakdown_tail, **search_host)
     need(impl == "native", "every host helper ran its C++ version")
+    need(card_stuffed, "no scan was stuffed on the host")
     need(scans["native"] == scans["numpy_twin"],
          "the C++ scan tail equals the NumPy twin on the main batch")
 

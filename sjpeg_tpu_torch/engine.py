@@ -7,7 +7,8 @@ bytes.  Method 0 (K.3 tables, no adaptive quantization), fused:
   DC predictor chain                      ops/fdct.fdct_dc, ops/vlc
   fDCT + quantize + VLC + per-block pack  ops/sample_pack  [CUDA kernel 1]
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
-  fetch, stuffing, markers                native, headers  [host]
+  '1' padding + 0xFF stuffing            ops/scan_stuff   [CUDA kernel 11]
+  fetch of the scans, markers            headers          [host]
 
 Methods 1, 3, 4 and 7 (two-pass optimal Huffman and/or adaptive
 quantization, method 7 with trellis quantization; per-image statistics, or
@@ -28,7 +29,8 @@ JAX engine stages them off the relay (`_encode_batch_optimized`):
                                           ops/merge_codesizes [CUDA kernel 4]
   Huffman lookup + per-block pack         ops/vlc_pack     [CUDA kernel 3]
   per-image stream concatenation          ops/stream_concat [CUDA kernel 2]
-  fetch, stuffing, markers                native, headers  [host]
+  '1' padding + 0xFF stuffing            ops/scan_stuff   [CUDA kernel 11]
+  fetch of the scans, markers            headers          [host]
 
 With passes > 1 and a target size or PSNR, every method runs the batched
 search of engine_search, which packs its passes through sample_pack with
@@ -85,12 +87,12 @@ import numpy as np
 import torch
 
 from . import constants as C
-from . import headers, native, pipeline, riskiness, sharp_yuv, spec, state
+from . import headers, pipeline, riskiness, sharp_yuv, spec, state
 from .huffman import (build_code_lut, k3_default_tables,
                       optimal_tables_from_freqs, trellis_cost_lens)
 from .ops import colorspace, fdct, huffman_device, lambda_fit, pack, \
-    quant_pack, quantize, sample_pack, stream_concat, trellis, vlc, \
-    vlc_fields, vlc_pack
+    quant_pack, quantize, sample_pack, scan_stuff, stream_concat, trellis, \
+    vlc, vlc_fields, vlc_pack
 from .ops import riskiness as risk_device
 from .params import TARGET_NONE, EncoderParam, method_flags
 from .utils.profiling import span
@@ -357,21 +359,14 @@ def _encode_batch_src(src, src_kind: str, yuv_mode: int, w: int, h: int,
         src, iq, ib, dc_luts, ac_luts, yuv_mode=yuv_mode, width=w,
         height=h, nb_blocks=tuple(layout.nb_blocks), bucket=bucket,
         src_kind=src_kind, n_images=b)
-    with span("fetch"):
-        totals_np = totals.cpu().numpy()
-    words_np = fetch_streams_batch(words, totals_np)
+    totals_np, scans = fetch_scans(words, totals)
 
-    out = []
     with span("tail"):
-        for i in range(b):
-            total_bits = int(totals_np[i])
-            if total_bits > bucket * 32:      # bucket overflow
-                out.append(_host_fallback_one(src, src_kind, i, yuv_mode, w,
-                                              h, param))
-                continue
-            scan = _finalize_scan_bytes(words_np[i], total_bits)
-            out.append(_assemble_jpeg(layout, param, qms, tables, scan))
-    return out
+        head = _jpeg_headers(layout, param, qms, tables)
+        return [_host_fallback_one(src, src_kind, i, yuv_mode, w, h, param)
+                if totals_np[i] > bucket * 32     # bucket overflow
+                else b"".join((head, scans[i], headers.EOI))
+                for i in range(b)]
 
 
 def _bucket(layout, w: int, h: int, bits_per_pixel_budget: float) -> int:
@@ -607,7 +602,7 @@ def _repack_one(vlc_state, dc_luts, ac_luts, i: int, per_img: int) -> bytes:
         dc_luts, ac_luts, i)
 
 
-def _repack_image(state_i, dc_luts, ac_luts, i: int) -> bytes:
+def _repack_image(state_i, dc_luts, ac_luts, i: int):
     """Scan bytes of image i from its own VLC state, packed again with its
     own LUTs (and its batch's, when shared) into a bucket of 64 words a
     block, which cannot overflow.  A fresh single-image encode would derive
@@ -657,16 +652,14 @@ def _host_matrices(quant, param: EncoderParam, b: int) -> list:
             for i in range(rows.shape[0])]
 
 
-def _jpegs(layout, param, per_qms, per_tables, words_np, totals_np,
-           overflow, repack) -> list:
-    """The host tail of a batch: image i's scan (its fetched words,
-    stuffed, or `repack(i)` where `overflow[i]`, a bucket overflow) in a
-    JPEG with its matrices and tables."""
+def _jpegs(layout, param, per_qms, per_tables, scans, overflow,
+           repack) -> list:
+    """The host tail of a batch: image i's scan (its fetched stuffed bytes,
+    or `repack(i)` where `overflow[i]`, a bucket overflow) in a JPEG with
+    its matrices and tables."""
     with span("tail"):
         return [_assemble_jpeg(layout, param, qms, tables,
-                               repack(i) if overflow[i] else
-                               _finalize_scan_bytes(words_np[i],
-                                                    int(totals_np[i])))
+                               repack(i) if overflow[i] else scans[i])
                 for i, (qms, tables) in enumerate(zip(per_qms, per_tables))]
 
 
@@ -713,9 +706,7 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
 
     bucket = _bucket(layout, w, h, bits_per_pixel_budget)
     words, totals = _stage_batch_pack(vlc_state, dc_luts, ac_luts, b, bucket)
-    with span("fetch"):
-        totals_np = totals.cpu().numpy()
-    words_np = fetch_streams_batch(words, totals_np)
+    totals_np, scans = fetch_scans(words, totals)
     if per_tables is None:
         with span("fetch"):
             flat_np = desc_flat.cpu().numpy()
@@ -726,8 +717,7 @@ def _encode_batch_optimized(src, src_kind: str, yuv_mode: int, w: int,
 
     per_img = _blocks_per_image(layout)
     return _jpegs(layout, param, _host_matrices(quant, param, b),
-                  per_tables, words_np, totals_np,
-                  totals_np > bucket * 32,
+                  per_tables, scans, totals_np > bucket * 32,
                   lambda i: _repack_one(vlc_state, dc_luts, ac_luts, i,
                                         per_img))
 
@@ -760,33 +750,37 @@ def fetch_stream(words: torch.Tensor, total_bits: int) -> np.ndarray:
         return words[:n_words].contiguous().cpu().numpy().view(np.uint32)
 
 
-def fetch_streams_batch(words: torch.Tensor, totals_np) -> np.ndarray:
-    """Copy to the host only the word columns that some image uses:
-    [B, bucket] int32 device words -> [B, ncols] uint32."""
-    nmax = -(-int(totals_np.max()) // 32) if totals_np.size else 0
-    ncols = max(1, min(nmax, words.shape[1]))
+def fetch_scans(words: torch.Tensor, totals: torch.Tensor):
+    """[B, bucket] stream words and int32 totals, [B] (stream_concat's) or
+    [B, k] with each image's total in the last column and other counts
+    before it -> (the totals on the host, same shape, B stuffed scans as
+    uint8 rows): `scan_stuff` where the words lie, one fetch of the totals
+    and lengths, one of the used byte columns."""
+    cols = totals.reshape(totals.shape[0], -1)
+    scan, lengths = scan_stuff.scan_stuff(words, cols[:, -1].contiguous())
     with span("fetch"):
-        return words[:, :ncols].contiguous().cpu().numpy().view(np.uint32)
+        host = torch.cat([cols, lengths[:, None]], dim=1).cpu().numpy()
+    totals_np = host[:, :-1].reshape(totals.shape)
+    return totals_np, fetch_scan_rows(scan, host[:, -1])
 
 
-def _finalize_scan_bytes(words: np.ndarray, total_bits: int) -> bytes:
-    """Host word stream -> stuffed entropy-coded byte segment (the '1'
-    padding and the 0xFF stuffing in one C++ pass)."""
-    return native.words_to_scan(words[: (total_bits + 31) // 32], total_bits)
-
-
-def _scan_bytes(words: torch.Tensor, totals: torch.Tensor) -> bytes:
-    """One image's [1, bucket] device words and [1] total (within the
-    bucket) -> its stuffed scan: a fetch of the total, then of the used
-    words."""
+def fetch_scan_rows(scan: torch.Tensor, lengths_np) -> list:
+    """`scan_stuff`'s [B, C] scans -> B host uint8 rows of lengths_np[i]
+    bytes, from one fetch of the used columns."""
+    n = int(lengths_np.max()) if lengths_np.size else 0
     with span("fetch"):
-        total_bits = int(totals[0])
-    words_np = fetch_streams_batch(words, np.array([total_bits]))[0]
-    with span("tail"):
-        return _finalize_scan_bytes(words_np, total_bits)
+        host = scan[:, :n].contiguous().cpu().numpy()
+    return [host[i, :k] for i, k in enumerate(lengths_np)]
 
 
-def _assemble_jpeg(layout, param, qms, tables, scan: bytes) -> bytes:
+def _scan_bytes(words: torch.Tensor, totals: torch.Tensor):
+    """One image's [1, bucket] words and [1] total (within the bucket) ->
+    its stuffed scan, a host uint8 row (`fetch_scans`)."""
+    return fetch_scans(words, totals)[1][0]
+
+
+def _jpeg_headers(layout, param, qms, tables) -> bytearray:
+    """Every marker segment before the scan, SOS included."""
     out = bytearray()
     out += headers.write_app0()
     out += headers.write_app_markers(param.app_markers)
@@ -799,9 +793,13 @@ def _assemble_jpeg(layout, param, qms, tables, scan: bytes) -> bytes:
                               layout.block_dims, layout.quant_idx)
     out += headers.write_dht(tables, layout.nb_comps)
     out += headers.write_sos(layout.nb_comps, layout.quant_idx)
-    out += scan
-    out += headers.EOI
-    return bytes(out)
+    return out
+
+
+def _assemble_jpeg(layout, param, qms, tables, scan) -> bytes:
+    """The JPEG of a stuffed scan (any bytes-like object), copied once."""
+    return b"".join((_jpeg_headers(layout, param, qms, tables), scan,
+                     headers.EOI))
 
 
 # ---------------------------------------------------------------------------

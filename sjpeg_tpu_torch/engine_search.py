@@ -24,7 +24,8 @@ It takes one of three routes, as the JAX engine does:
        per-image stream concatenation        ops/stream_concat [kernel 2]
        stuffing count, exact size, decision  _stage_count_stuffing_batch
      one fetch of the trace, float64 replay  dichotomy.replay_search_trace
-     the winning pass's streams, assembly    [host]
+     the winning pass's streams, stuffed     ops/scan_stuff [kernel 11]
+     fetch of the scans, assembly            [host]
 
    The loop leaves after the first pass in which every image's hook has
    converged (one host read a pass).
@@ -439,8 +440,7 @@ class _Search:
         return search_alone(one, self.src_kind, self.yuv_mode, self.w,
                             self.h, self.param)
 
-    def assemble(self, qms, tables, words_np, total_bits: int):
-        scan = engine._finalize_scan_bytes(words_np, total_bits)
+    def assemble(self, qms, tables, scan):
         return engine._assemble_jpeg(self.layout, self.param, qms, tables,
                                      scan)
 
@@ -507,27 +507,25 @@ class _Search:
         return best_pass, opt
 
     def pick_streams(self, loop, combo, best_pass):
-        """The winning pass's streams: a gather on the card and one fetch
-        of the used word columns -> (words [B, ncols] uint32, totals [B],
-        DHT descriptions [B, 604] or None)."""
+        """The winning pass's streams: a gather on the card, stuffed there,
+        and the fetches of `engine.fetch_scans` -> (B stuffed scans,
+        totals [B], DHT descriptions [B, 604] or None)."""
         bi = np.arange(self.b)
-        totals = combo[best_pass, bi, 1]
         desc = combo[best_pass, bi, 2:] if combo.shape[2] > 2 else None
-        words = loop[3][torch.from_numpy(best_pass).to(self.device),
-                        torch.arange(self.b, device=self.device)]
-        fits = totals <= self.bucket * 32
-        return (engine.fetch_streams_batch(words, np.where(fits, totals, 0)),
-                totals, desc)
+        pick = (torch.from_numpy(best_pass).to(self.device),
+                torch.arange(self.b, device=self.device))
+        totals, scans = engine.fetch_scans(loop[3][pick], loop[1][pick])
+        return scans, totals, desc
 
     def size_device(self):
         nodes = self.node_matrices()
         loop, thr = self.size_loop(nodes)
         combo = self.fetch_size_trace(loop)
         best_pass, opt = self.replay_size(nodes, combo, thr)
-        words_np, totals, desc = self.pick_streams(loop, combo, best_pass)
-        return self.size_tail(opt, words_np, totals, desc)
+        scans, totals, desc = self.pick_streams(loop, combo, best_pass)
+        return self.size_tail(opt, scans, totals, desc)
 
-    def size_tail(self, opt, words_np, totals, desc):
+    def size_tail(self, opt, scans, totals, desc):
         out = []
         for i in range(self.b):
             if opt[i] is None or totals[i] > self.bucket * 32:
@@ -536,7 +534,7 @@ class _Search:
             tables = (huffman_device.tables_from_flat(desc, i, self.n_groups)
                       if desc is not None else self.defaults)
             out.append(self.assemble(self.finalize(opt[i]), tables,
-                                     words_np[i], int(totals[i])))
+                                     scans[i]))
         return out
 
     # ---- route 2: PSNR, device loop -------------------------------------
@@ -690,20 +688,16 @@ class _Search:
                 coeffs, iq3, ib3, flags["optimize_size"], nb, b, b)
         dcl, acl, per_tables, desc_flat = engine._stage_tables(
             freqs, flags, self.n_groups, b, False, self.device)
-        words, totals = engine._stage_batch_pack(vlc_state, dcl, acl, b,
-                                                 self.bucket)
-        totals_np = totals.cpu().numpy()
+        totals_np, scans = engine.fetch_scans(*engine._stage_batch_pack(
+            vlc_state, dcl, acl, b, self.bucket))
         fits = totals_np <= self.bucket * 32
-        words_np = engine.fetch_streams_batch(words,
-                                              np.where(fits, totals_np, 0))
         if per_tables is None:
             flat = desc_flat.cpu().numpy()
             per_tables = [huffman_device.tables_from_flat(flat, i,
                                                           self.n_groups)
                           for i in range(b)]
         return [self.fallback(i) if opt[i] is None or not fits[i]
-                else self.assemble(final_qms[i], per_tables[i], words_np[i],
-                                   int(totals_np[i]))
+                else self.assemble(final_qms[i], per_tables[i], scans[i])
                 for i in range(b)]
 
 

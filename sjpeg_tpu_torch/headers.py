@@ -129,7 +129,7 @@ def write_dqt(quant_matrices, yuv_mode: int) -> bytes:
     for n in range(num):
         out.append(n)
         q = np.asarray(quant_matrices[n], dtype=np.uint8)
-        out += bytes(int(q[ZIGZAG[i]]) for i in range(64))
+        out += q[ZIGZAG].tobytes()
     return bytes(out)
 
 

@@ -3,8 +3,9 @@
 Name for name the JAX package's `native` module, over the port's own copy
 of its C++ (`csrc/native_host.cc`), built with g++ at first use into
 `_build/` (`kernels.host_library`); nothing builds at import.  The
-helpers run on the host after the card: every scan tail's padding and
-0xFF stuffing (`words_to_scan`, from `engine._finalize_scan_bytes`), the
+helpers run on the host after the card: the padding and 0xFF stuffing
+of the scans of CPU runs and of a bucket overflow's repack
+(`words_to_scan`, from `ops/scan_stuff.scan_stuff_plain`), the
 Huffman merge of the host table builds (`huffman_codesizes`, from
 `huffman.build_optimal_table`) and the search's node fit
 (`analyse_histo_nodes`, from `adaptive.analyse_histo_nodes`).

@@ -19,8 +19,8 @@ the stripe's device, with the engine's kernels:
      device (the merge_codesizes kernel; shared tables on the host)
   3. VLC + per-block pack (vlc_pack) + per-stripe compaction
      (stream_concat), padding blocks masked out  -> one stream_concat
-     launch a dp row stitches the stripes -> one fetch a dp row -> host
-     tail (stuffing, markers)
+     launch a dp row stitches the stripes -> scan_stuff on the lead
+     device -> one fetch a dp row -> host tail (markers)
 
 Launches are asynchronous and the quantizers are uploaded before the
 stripe loops, so stripes on distinct devices are meant to overlap; no run
@@ -421,16 +421,16 @@ class _Sharded:
             self.stitched.append((iw, torch.cat([tt, it[:, None]], dim=1)))
         del self.streams
 
-    # ---- fetch: totals, used words and DHT descriptions, a dp row each ----
+    # ---- fetch: totals, stuffed scans and DHT descriptions, a dp row each -
     def fetch(self):
-        """Per image: its stitched words and total, whether a stripe
-        overflowed its bucket, and its Huffman tables."""
-        self.words, self.totals, self.overflow = [], [], []
+        """Per image: its stitched stream stuffed on the lead device and
+        fetched with its stripes' totals (`engine.fetch_scans`), whether a
+        stripe overflowed its bucket, and its Huffman tables."""
+        self.scans, self.overflow = [], []
         self.host_tables = self.per_tables or []
         for r, (iw, tt) in enumerate(self.stitched):
-            tt = tt.cpu().numpy()
-            self.totals += list(tt[:, -1])
-            self.words += list(engine.fetch_streams_batch(iw, tt[:, -1]))
+            tt, scans = engine.fetch_scans(iw, tt)
+            self.scans += scans
             self.overflow += list((tt[:, :-1] > self.geo.bucket * 32).any(1))
             if self.desc is not None:
                 desc = self.desc[r].cpu().numpy()
@@ -438,7 +438,7 @@ class _Sharded:
                     desc, j, self.n_groups) for j in range(self.b_l)]
         del self.stitched
 
-    # ---- host tail: stuffing, markers; overflowing images re-packed -------
+    # ---- host tail: markers; overflowing images re-packed ------------------
     def tail(self):
         n = self.b_real
         if self.fitted is not None:    # read after the totals' fetch
@@ -447,10 +447,10 @@ class _Sharded:
                     q, self.param, self.b_l * self.mesh.dp_local)]
         self.out = engine._jpegs(
             self.geo.layout, self.param, self.per_qms[:n],
-            self.host_tables[:n], self.words, self.totals, self.overflow,
+            self.host_tables[:n], self.scans, self.overflow,
             lambda i: self._repack(*divmod(i, self.b_l)))
 
-    def _repack(self, r: int, j: int) -> bytes:
+    def _repack(self, r: int, j: int):
         """Scan bytes of image j of dp row r after a stripe overflowed its
         bucket: its real blocks' VLC state from every stripe, on the lead
         device, packed again by the one-device engine's `_repack_image`."""
@@ -622,12 +622,12 @@ class _ShardedSearch(_Sharded):
         self._upload(self.per_qms, lens)
         self.coef = self.coef_all
 
-    # ---- host tail: stuffing, markers; overflowing images searched alone --
+    # ---- host tail: markers; overflowing images searched alone -------------
     def tail(self):
         d = self.dich
         self.out = [self._fallback(i) if d.overflow[i] or self.overflow[i]
                     else d.assemble(self.per_qms[i], self.host_tables[i],
-                                    self.words[i], int(self.totals[i]))
+                                    self.scans[i])
                     for i in range(self.b_real)]
 
     def _fallback(self, i: int) -> bytes:

@@ -1,8 +1,9 @@
 """The port's native host helpers (sjpeg_tpu_torch.native over
 csrc/native_host.cc, built with g++ into sjpeg_tpu_torch/_build/) against
 the JAX package's NumPy host code and the port's own twins, bit for bit:
-the scan tail (words_to_scan: '1' padding and 0xFF stuffing) and
-stuff_bytes against sjpeg_tpu.bitio on streams with runs of 0xFF, every
+the scan tail (words_to_scan: '1' padding and 0xFF stuffing, also
+through the scan_stuff op's CPU route) and stuff_bytes against
+sjpeg_tpu.bitio on streams with runs of 0xFF, every
 bit length mod 8, one word and none; merge_streams against
 sjpeg_tpu.native's NumPy merge; huffman_codesizes against the port's
 Python merge on random and adversarial rows; the node fit with 1 and 4
@@ -13,14 +14,16 @@ back."""
 
 import numpy as np
 import pytest
+import torch
 
 from sjpeg_tpu import adaptive as jadaptive
 from sjpeg_tpu import bitio as jbitio
 from sjpeg_tpu import native as jnative
 from sjpeg_tpu.params import quant_matrices_for_quality
 
-from sjpeg_tpu_torch import adaptive, bitio, engine, huffman, kernels, native
+from sjpeg_tpu_torch import adaptive, bitio, huffman, kernels, native
 from sjpeg_tpu_torch import constants as C
+from sjpeg_tpu_torch.ops import scan_stuff
 
 from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
@@ -66,7 +69,10 @@ def test_words_to_scan_and_stuffing_match_jax(name, words, total):
     want = _jax_scan(words, total)
     assert native.words_to_scan(words, total) == want
     assert bitio.words_to_scan(words, total) == want
-    assert engine._finalize_scan_bytes(words, total) == want
+    scan, lengths = scan_stuff.scan_stuff(          # the op's CPU route
+        torch.from_numpy(words.astype(np.uint32).view(np.int32)[None]),
+        torch.tensor([total], dtype=torch.int32))
+    assert scan[0, :int(lengths[0])].numpy().tobytes() == want
     raw = words.astype(">u4").view(np.uint8)
     assert native.stuff_bytes(raw) == jbitio.stuff_bytes(raw)
     assert native.stuff_bytes(raw) == bitio.stuff_bytes(raw)
@@ -183,7 +189,8 @@ def test_broken_compiler_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(native, "_LIB", None)
     with pytest.raises(RuntimeError, match="broken compiler"):
-        engine._finalize_scan_bytes(np.zeros(1, np.uint32), 8)
+        scan_stuff.scan_stuff(torch.zeros((1, 1), dtype=torch.int32),
+                              torch.tensor([8], dtype=torch.int32))
     with pytest.raises(RuntimeError, match="exited 3"):
         native.build_native()
     assert not (tmp_path / "_build").exists() or not any(
